@@ -16,14 +16,30 @@ The quickest proof that the port starts on the card.  Phases, in order
                 lengths up to 8192 over sentinel-padded tables, window
                 None / 4096 / small, softcap None / 50; then time kernel,
                 plain version and the gather + SDPA yardstick at the serve
-                shape;
+                shape.  The codec decode-add kernels (B1 bf16, B2 int8) are
+                held to their plain versions BIT FOR BIT (ragged M, ±0,
+                subnormal and ±Inf keep values, aligned and unaligned
+                pointers), then timed with their plain versions and the
+                one-call library yardsticks at the train phase's largest
+                reduce hop;
   3. serve    — ``repro_torch.launch.serve.main`` on gemma2-2b at full
                 width (bf16, random init, paged KV, 16 requests): all
                 requests complete and the kernel's launch count equals
                 26 x the engine's decode steps;
   4. decode   — one full-width decode step on one cache, through the kernel
                 and through the gather-then-attend lowering: logits agree;
-  5. an earlier line lists the kernels (JSON), and the last line is
+  5. train    — ``repro_torch.launch.train.run`` on gemma2-2b at its
+                published widths with ONE cut, 26 -> 8 layers (memory: see
+                ``TRAIN_CUT``): a BSP world of 4 ranks on the card, fractal
+                schedule, 256 MB buckets, global batch 8 x 1024 tokens,
+                3 steps with the bf16 wire codec, then 3 with int8.  Losses
+                are finite and each codec's kernel launched exactly
+                steps x buckets x log2(4) times; per-step time, tokens/s,
+                peak memory, and the device idle share of one profiled
+                step; one real bucket of gradients reduce-scattered through
+                the kernels equals the same call through the plain
+                versions, bit for bit;
+  6. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the repo's ``src/`` beside it, it exits 1 and
@@ -86,6 +102,28 @@ KERNEL_SHAPES = [dict(Hkv=4, G=2, d=256, bs=16),
 # relative) and 26 residual layers compound it, on logits of magnitude
 # ~3 (softcap 30)
 LOGIT_ATOL = 0.25
+
+# B1/B2 vs their plain versions: the same single rounding per element
+# (bf16 widens exactly, int8 is one FMA), so equal bit for bit
+CODEC_BF16_MS = [1, 127, 128, 513, (1 << 20) + 17]
+CODEC_INT8_NBS = [1, 3, 8192]
+# bytes each element of a decode-add moves: keep read + wire read + out
+# written (int8: one f32 scale per 128 elements)
+B1_BYTES_PER_ELEM = 4 + 2 + 4
+B2_BYTES_PER_ELEM = 4 + 1 + 4 / 128 + 4
+
+# The train phase's one cut.  Per parameter the step holds 2 B of bf16
+# params, the [4, N] f32 gradients (16 B) and EF residual (16 B), and the
+# ZeRO-1 moments (8 B): 42 B.  At 26 layers N = 2.614 B → 110 GB, more
+# than the card's 80 GB; at 8 layers N = 589.8 M embedding + 8 x 77.87 M
+# = 1.213 B → 50.9 GB, plus per-bucket temporaries and one rank's
+# activations.  Widths, vocab, softcaps and window are the published ones.
+TRAIN_CUT = dict(num_layers=8, layer_pattern=("local", "global") * 4)
+TRAIN_WORLD, TRAIN_STEPS = 4, 3
+TRAIN_ARGS = ["--arch", "gemma2-2b", "--device", "cuda", "--devices",
+              str(TRAIN_WORLD), "--steps", str(TRAIN_STEPS), "--batch", "8",
+              "--seq", "1024", "--schedule", "fractal", "--bucket-mb",
+              "256", "--lr", "3e-4", "--seed", "0"]
 
 SERVE_ARGS = ["--arch", "gemma2-2b", "--device", "cuda", "--kv-mode",
               "paged", "--requests", "16", "--prompt-len", "256", "--gen",
@@ -331,6 +369,114 @@ def phase_timing(torch, ops, ref, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the codec decode-add kernels (B1, B2) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _codec_keep(torch, M, dev, seed):
+    """Random normal keep values led by ±0, subnormals and ±Inf."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    keep = torch.randn(M + 1, generator=g, device=dev)
+    special = torch.tensor([0.0, -0.0, 1e-42, -3e-39, float("inf"),
+                            -float("inf")], device=dev)
+    n = min(M + 1, len(special))
+    keep[:n] = special[:n]
+    return keep, g
+
+
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _finite_err(torch, a, b):
+    fin = torch.isfinite(b)
+    return (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def phase_codec_kernels(torch, tops, tref, codecs, dev):
+    """B1 and B2 against ref.py, bit for bit, on the vectorised path
+    (aligned) and the scalar one (pointers 4 bytes off); returns the
+    largest |kernel - ref| over finite outputs of each (0 when equal)."""
+    worst = {"bf16": 0.0, "int8": 0.0}
+    cases = [("bf16", M) for M in CODEC_BF16_MS] + \
+        [("int8", nb * 128) for nb in CODEC_INT8_NBS]
+    for name, M in cases:
+        keep_all, g = _codec_keep(torch, M, dev, M)
+        x_all = torch.randn(M + 1, generator=g, device=dev) * torch.exp(
+            2 * torch.randn(M + 1, generator=g, device=dev))
+        for off in (0, 1):
+            keep, x = keep_all[off:off + M], x_all[off:off + M]
+            wire = codecs[name].encode(x)
+            if name == "bf16":
+                got = tops.decode_add_bf16_kernel(keep, wire["x"])
+                want = tref.decode_add_bf16(keep, wire["x"])
+            else:
+                got = tops.decode_add_int8_kernel(keep, wire["q"],
+                                                  wire["scale"])
+                want = tref.decode_add_int8(keep, wire["q"], wire["scale"])
+            torch.cuda.synchronize()
+            err = _finite_err(torch, got, want)
+            same = _same_bits(torch, got, want)
+            print(f"  {'B1' if name == 'bf16' else 'B2'} {name} M={M} "
+                  f"{'aligned' if off == 0 else 'unaligned'}: "
+                  f"{'bit-identical' if same else 'DIFFERS'} to ref.py "
+                  f"(max finite |diff| {err:.3e})")
+            if not same:
+                raise AssertionError(f"decode_add {name} M={M} off={off} "
+                                     "differs from ref.py")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def phase_codec_timing(torch, tops, tref, codecs, M):
+    """B1, B2, their plain versions and the one-call library yardsticks
+    (``torch.add`` with type promotion; ``torch.addcmul``) on one launch of
+    ``M`` elements: the train phase's largest reduce hop (every rank's
+    kept half of the largest bucket).  A CUDA graph of 3 calls, so
+    launch overhead is out of the device time."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    keep = torch.randn(M, generator=g, device=dev)
+    res = {}
+    for name in ("bf16", "int8"):
+        wire = codecs[name].encode(
+            torch.randn(M, generator=g, device=dev))
+        if name == "bf16":
+            w = wire["x"]
+            fns = dict(kernel=lambda i: tops.decode_add_bf16_kernel(keep, w),
+                       plain=lambda i: tref.decode_add_bf16(keep, w),
+                       library=lambda i: torch.add(keep, w))
+            per = B1_BYTES_PER_ELEM
+        else:
+            q, sc = wire["q"], wire["scale"]
+            k2, q2, s2 = keep.view(-1, 128), q.view(-1, 128), sc.view(-1, 1)
+            fns = dict(kernel=lambda i: tops.decode_add_int8_kernel(keep, q,
+                                                                    sc),
+                       plain=lambda i: tref.decode_add_int8(keep, q, sc),
+                       library=lambda i: torch.addcmul(k2, q2, s2))
+            per = B2_BYTES_PER_ELEM
+        t = {}
+        for label in ("plain", "kernel", "kernel2", "plain2", "library"):
+            t[label] = _time_ms(torch, fns[label.rstrip("2")], 3,
+                                reps=3)["graph"]
+        del wire
+        bound = M * per / HBM_BYTES_PER_S * 1e3
+        res[name] = dict(ms=min(t["kernel"], t["kernel2"]),
+                         plain_ms=min(t["plain"], t["plain2"]),
+                         library_ms=t["library"], bound_ms=bound,
+                         bound_by="bytes")
+        print(f"  {'B1' if name == 'bf16' else 'B2'} {name} M={M}: kernel "
+              f"{res[name]['ms']:.4f} ms, plain {res[name]['plain_ms']:.4f}"
+              f" ms, library {t['library']:.4f} ms, bound {bound:.4f} ms "
+              f"({per:g} B/elem at {HBM_BYTES_PER_S:.3g} B/s); device time "
+              f"per call from a CUDA graph of 3 calls")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: full-width serving
 # ---------------------------------------------------------------------------
 
@@ -446,6 +592,180 @@ def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
                                     row_limit=12, max_name_column_width=40))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: BSP training of gemma2-2b (8 layers) at world 4
+# ---------------------------------------------------------------------------
+
+
+def train_config():
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config("gemma2-2b"), **TRAIN_CUT)
+
+
+def train_args(codec):
+    from repro_torch.launch import train as train_cli
+    return train_cli.parse_args(TRAIN_ARGS + ["--bucket-codec", codec])
+
+
+def train_engine(cfg, codec):
+    """The bucket plan the train phase's runs use."""
+    import torch
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.core.superstep import engine_for
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import reference_leaves
+    args = train_args(codec)
+    return engine_for(reference_leaves(T.init_params(cfg, device="meta"),
+                                       cfg),
+                      BSPConfig(bucket_mb=args.bucket_mb,
+                                bucket_codec=codec),
+                      args.devices, force_dtype=torch.float32)
+
+
+def phase_train(torch, tops, cfg):
+    """The main path: ``launch.train.run`` with each codec; the counts are
+    set to 0 just before each run and read just after.  Returns each
+    codec's launch count."""
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+    launches = {}
+    for codec in ("bf16", "int8"):
+        args = train_args(codec)
+        print(f"  {codec}: {cfg.name} at published widths, cut to "
+              f"{cfg.num_layers} layers (memory: 42 B per parameter); "
+              f"world {args.devices} on one device")
+        dev = torch.device(args.device)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+        out = train_cli.run(cfg, args)
+        counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        n_b = out["engine"].n_buckets
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        if len(losses) != args.steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{codec}: losses {losses}")
+        hops = args.devices.bit_length() - 1
+        want = args.steps * n_b * hops
+        other = "int8" if codec == "bf16" else "bf16"
+        if counts[codec] != want or counts[other] != 0:
+            raise AssertionError(
+                f"{codec}: launches {counts}, want {want} of decode_add_"
+                f"{codec} (= {args.steps} steps x {n_b} buckets x "
+                f"log2({args.devices})) and none of the other")
+        tokens = args.batch * args.seq
+        for h in hist:
+            print(f"  {codec} step {h['step']}: loss {h['loss']:.4f}, "
+                  f"{h['sec']:.3f} s, {tokens / h['sec']:.0f} tokens/s")
+        print(f"  {codec}: {counts[codec]} decode_add_{codec} launches = "
+              f"{args.steps} steps x {n_b} buckets x {hops} hops; peak "
+              f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
+        launches[codec] = counts[codec]
+        del out
+    return launches
+
+
+def _plain_decode_add(tref):
+    def decode_add(keep, wire, codec):
+        if codec.name == "bf16":
+            return tref.decode_add_bf16(keep, wire["x"])
+        return tref.decode_add_int8(keep, wire["q"], wire["scale"])
+    return decode_add
+
+
+def phase_train_profile(torch, cfg, tref, codecs):
+    """One more int8 step outside the counted runs, profiled: host-clock
+    time against the device's kernel time.  Then the largest bucket of
+    real gradients (4 ranks' rows) reduce-scattered through the kernels
+    and through the plain versions: equal bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import collectives as C
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import make_bsp_train_step
+    from repro_torch.weights import reference_leaves
+    args = train_args("int8")
+    dev = torch.device(args.device)
+    step, init_state = make_bsp_train_step(
+        cfg, AdamWConfig(lr=args.lr, total_steps=args.steps,
+                         warmup_steps=1),
+        BSPConfig(bucket_mb=args.bucket_mb, bucket_codec="int8"),
+        args.devices, device=dev)
+    state = init_state(T.init_params(cfg, args.seed, device=dev))
+    data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                       seq_len=args.seq, seed=args.seed))
+    state, _ = step(state, data.batch(0))                 # warm
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, _ = step(state, data.batch(1))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(2))
+        torch.cuda.synchronize(dev)
+        wall_prof = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    b2 = [e.time_range.elapsed_us() for e in kernels
+          if "decode_add_int8" in e.name]
+    print(f"  int8 step: {wall:.3f} s on the host clock ({wall_prof:.3f} s "
+          f"under the profiler); device kernels {busy:.3f} s (profiler), so "
+          f"the card idles {max(0.0, 1 - busy / wall) * 100:.1f}% of the "
+          f"step; loss {m['loss'].item():.4f}")
+    share = sum(b2) / 1e4 / max(busy, 1e-9)
+    print(f"  B2 in that step: {len(b2)} launches, {sum(b2) / 1e3:.3f} ms "
+          f"of device time ({share:.2f}% of the step's kernels)")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=12, max_name_column_width=40))
+    state.flat_mu = state.flat_nu = state.ef_residual = None
+    del prof
+
+    engine = init_state.engine
+    bkt = max(engine.buckets, key=lambda b: b.length)
+    leaves = reference_leaves(state.params, cfg)
+    flat = [t for leaf in leaves for t in leaf.parts]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(3).items()}
+    world = args.devices
+    rows = torch.zeros(world, bkt.length, device=dev)
+    per = batch["tokens"].shape[0] // world
+    for r in range(world):
+        mb = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+        loss, _ = T.loss_fn(state.params, cfg, mb)
+        it = iter(torch.autograd.grad(loss, flat))
+        grads = [[next(it) for _ in leaf.parts] for leaf in leaves]
+        engine.pack_bucket(bkt, grads, out=rows[r])
+        del grads, it, loss
+    with torch.no_grad():
+        for name in ("bf16", "int8"):
+            got = C.fractal_reduce_scatter(rows, codecs[name])
+            kernel_op = C.decode_add
+            C.decode_add = _plain_decode_add(tref)
+            try:
+                want = C.fractal_reduce_scatter(rows, codecs[name])
+            finally:
+                C.decode_add = kernel_op
+            torch.cuda.synchronize(dev)
+            same = _same_bits(torch, got, want)
+            print(f"  real bucket b{bkt.index} ({world} x {bkt.length}"
+                  f" f32 gradients): fractal_reduce_scatter with {name} "
+                  f"through the kernels is "
+                  f"{'bit-identical' if same else 'DIFFERENT'} to the plain"
+                  f" versions")
+            if not same:
+                raise AssertionError(f"real-bucket reduce-scatter ({name}) "
+                                     "differs between kernel and plain")
+            del got, want
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel instantiation from ``-Xptxas -v``
     output: template arguments, registers, stack and spills."""
@@ -455,9 +775,17 @@ def _ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"I(13__nv_bfloat16|f)((?:Li\d+E)*)E", m.group(1))
-            label = "<?>" if t is None else "<{}>".format(",".join(
-                ["bf16" if t.group(1) != "f" else "f32"]
-                + re.findall(r"Li(\d+)E", t.group(2))))
+            k = re.search(r"(decode_add_\w+?_kernel)ILb([01])E",
+                          m.group(1))
+            if t is not None:
+                label = "<{}>".format(",".join(
+                    ["bf16" if t.group(1) != "f" else "f32"]
+                    + re.findall(r"Li(\d+)E", t.group(2))))
+            elif k is not None:        # decode-add kernels: <vectorised?>
+                body = "vec" if k.group(2) == "1" else "scalar"
+                label = f" {k.group(1)}<{body}>"
+            else:
+                label = f" {m.group(1)}"
             spill = ""
         elif label and "spill" in line:
             spill = line.strip()
@@ -481,7 +809,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.tree_reduce import ops as tops, ref as tref
     from repro_torch.models.registry import get_config
+    from repro_torch.optim.compression import Bf16Codec, Int8Codec
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -494,17 +824,29 @@ def main() -> int:
         for line in _ptxas_summary(build.build_log(name)):
             print(f"  ptxas {name}{line}")
 
+    dev = torch.device("cuda", 0)
+    codecs = {"bf16": Bf16Codec(), "int8": Int8Codec()}
     print("[2] kernels vs plain versions", flush=True)
-    max_err, max_rel = phase_kernels(torch, ops, ref,
-                                     torch.device("cuda", 0))
+    max_err, max_rel = phase_kernels(torch, ops, ref, dev)
     timing = phase_timing(torch, ops, ref, get_config("gemma2-2b"))
+    codec_err = phase_codec_kernels(torch, tops, tref, codecs, dev)
+    cfg8 = train_config()
+    plan = train_engine(cfg8, "int8")
+    hop = plan.world * max(b.length for b in plan.buckets) // 2
+    codec_timing = phase_codec_timing(torch, tops, tref, codecs, hop)
 
     print("[3] serve gemma2-2b at full width", flush=True)
     launches = phase_serve(torch, ops)
 
     print("[4] one decode step: kernel vs gather lowering", flush=True)
-    phase_decode_step(torch, get_config("gemma2-2b"), torch.device("cuda", 0))
+    phase_decode_step(torch, get_config("gemma2-2b"), dev)
 
+    print(f"[5] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
+          f"{plan.world}", flush=True)
+    train_launches = phase_train(torch, tops, cfg8)
+    phase_train_profile(torch, cfg8, tref, codecs)
+
+    tr = "src/repro/kernels/tree_reduce/kernel.py"
     kernels = [dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/paged_attention/csrc/"
@@ -512,6 +854,14 @@ def main() -> int:
         replaces="src/repro/kernels/paged_attention/kernel.py:90",
         launches=launches, max_abs_err=max_err, max_err=max_err,
         max_row_rel_err=max_rel, **timing)]
+    for name, codec, line in (("decode_add_bf16", "bf16", 119),
+                              ("decode_add_int8", "int8", 140)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/tree_reduce/csrc/tree_reduce.cu",
+            replaces=f"{tr}:{line}", launches=train_launches[codec],
+            max_abs_err=codec_err[codec], elements=hop,
+            **codec_timing[codec]))
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

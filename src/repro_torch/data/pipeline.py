@@ -1,0 +1,112 @@
+"""Deterministic synthetic data pipeline (port of
+``repro/data/pipeline.py``): numpy only, so the port's batches equal the
+reference's exactly for the same config and seed.
+
+  * Zipfian unigram distribution (vocab-scaled) + short-range Markov
+    structure, so losses are non-degenerate and compressible;
+  * deterministic per-(host, step) seeding — restart-safe;
+  * host sharding: host h of H serves global-batch rows [h·B/H, (h+1)·B/H);
+  * background prefetch (thread + queue).
+
+``reshard_for_shares`` (uneven per-rank micro-batches) comes with the
+trainer's ``shares=`` path in a later slice; frontend embeddings with the
+frontend architectures.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator
+
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+    num_hosts: int = 1
+    host_id: int = 0
+    markov_order: int = 1
+    zipf_a: float = 1.2
+
+
+class SyntheticLM:
+    """Zipf + Markov synthetic token stream."""
+
+    def __init__(self, cfg: ArchConfig, dcfg: DataConfig):
+        if dcfg.global_batch % dcfg.num_hosts:
+            raise ValueError("global_batch must divide across hosts")
+        if cfg.frontend:
+            raise NotImplementedError(
+                f"{cfg.name}: frontend batches come with the frontend "
+                "architectures (port slice 3)")
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.local_batch = dcfg.global_batch // dcfg.num_hosts
+        v = cfg.vocab_size
+        base = np.random.default_rng(dcfg.seed)
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        probs = ranks ** (-dcfg.zipf_a)
+        self._probs = probs / probs.sum()
+        # a fixed random "grammar": each token biases its successor window
+        self._shift = base.integers(1, max(2, v // 7))
+
+    def _rng(self, step: int) -> np.random.Generator:
+        # independent of host count: seed by (step, global row block)
+        return np.random.default_rng(
+            (self.dcfg.seed, step, self.dcfg.host_id))
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = self._rng(step)
+        B, T, v = self.local_batch, self.dcfg.seq_len, self.cfg.vocab_size
+        base = rng.choice(v, size=(B, T + 1), p=self._probs)
+        # Markov-ify: half the tokens continue their predecessor's window
+        cont = rng.random((B, T)) < 0.5
+        nxt = (base[:, :-1] + self._shift) % v
+        base[:, 1:][cont] = nxt[cont]
+        return {"tokens": base[:, :-1].astype(np.int32),
+                "labels": base[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
+
+
+class Prefetcher:
+    """Thread-backed prefetch queue over any step-indexed source."""
+
+    def __init__(self, source: SyntheticLM, start_step: int = 0,
+                 depth: int = 2):
+        self.source = source
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.source.batch(step)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=1.0)

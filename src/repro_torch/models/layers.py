@@ -10,15 +10,18 @@ reference so the parity tests compare like with like:
   * softmax and normalisers run in f32, activations in the param dtype;
   * attention is GQA-grouped (KV heads are never replicated in memory).
 
-Slice 1 ports what paged serving of dense GQA models reaches: the
-unchunked attention core, the paged KV primitives, GQA attention and the
-gated MLPs.  Blocked (training-length) attention, the contiguous KV cache,
-MLA and MoE raise ``NotImplementedError`` naming the slice that brings
-them.
+Ported: what paged serving (slice 1) and training (slice 2) of dense GQA
+models reach: the attention core, unchunked and with checkpointed query
+blocks (``chunk_q``, training lengths), the paged KV primitives, GQA
+attention and the gated MLPs.  The online-softmax KV chunking of long
+inference prefill, the contiguous KV cache, MLA and MoE raise
+``NotImplementedError`` naming the slice that brings them.
 
-The paged primitives update the pool IN PLACE (``paged_scatter``,
+The training forward runs under autograd and writes nothing in place.  The
+paged primitives update the pool IN PLACE (``paged_scatter``,
 ``copy_block``) and return it: the pools are the largest tensors of a
-serve run, and nothing needs the pre-write value.
+serve run, nothing needs the pre-write value, and serving runs under
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -28,11 +31,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
-QUERY_CHUNK_THRESHOLD = 2_048    # from here on the reference blocks queries
+QUERY_CHUNK_THRESHOLD = 2_048    # training: checkpointed query blocks
+QUERY_CHUNK = 512
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -129,14 +134,33 @@ def _mask_bias(pos_q, pos_k, *, causal, window, prefix_len):
     return torch.where(ok, zero, float("-inf"))
 
 
+def _query_block(lo, hi, q_blk, pq_blk, k_full, v_full, pk_full, *,
+                 causal, window, prefix_len, attn_cap):
+    """One query block of the blocked attention: keys [lo, hi) only.  The
+    slicing happens inside, so a checkpoint saves the full k/v once."""
+    k_j, v_j = k_full[:, lo:hi], v_full[:, lo:hi]
+    pk_j = pk_full[:, lo:hi]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_j).float()
+    s = softcap(s, attn_cap)
+    s = s + _mask_bias(pq_blk, pk_j, causal=causal, window=window,
+                       prefix_len=prefix_len)[:, None, None]
+    s = torch.where(s == float("-inf"), -1e30, s)  # padded rows stay finite
+    p = torch.softmax(s, dim=-1).to(v_j.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v_j)
+
+
 def gqa_attention(q, k, v, *, pos_q, pos_k, causal=True, window=None,
-                  prefix_len=None, attn_cap=None, scale=None) -> torch.Tensor:
+                  prefix_len=None, attn_cap=None, scale=None,
+                  chunk_q=None) -> torch.Tensor:
     """q: [B,Tq,Hq,Dk]  k: [B,Tk,Hkv,Dk]  v: [B,Tk,Hkv,Dv] → [B,Tq,Hq,Dv].
 
-    The unchunked branch of the reference: scores for every (query, key)
-    pair at once.  The reference's chunked branches (online softmax over
-    long KV, checkpointed query blocks for training) come with the
-    training slice.
+    ``chunk_q``: blocked attention for TRAINING lengths: query blocks of
+    ``chunk_q`` rows, each reading only the keys its causal diagonal and
+    window reach (static extents; assumes arange-aligned positions from
+    0), checkpointed while gradients flow so the backward recomputes one
+    block's scores at a time.  Without it, scores for every (query, key)
+    pair at once.  The reference's online softmax over long-KV chunks
+    (inference prefill) is not ported yet.
     """
     B, Tq, Hq, Dk = q.shape
     Hkv = k.shape[2]
@@ -148,6 +172,34 @@ def gqa_attention(q, k, v, *, pos_q, pos_k, causal=True, window=None,
         pos_q = pos_q[None, :].expand(B, Tq)
     if pos_k.ndim == 1:
         pos_k = pos_k[None, :].expand(B, k.shape[1])
+
+    if chunk_q is not None and Tq > chunk_q:
+        C = chunk_q
+        nq = -(-Tq // C)
+        pad = nq * C - Tq
+        if pad:
+            qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+            pos_q = F.pad(pos_q, (0, pad), value=-1)  # masked (pk<=pq fails)
+        Tk = k.shape[1]
+        kw = dict(causal=causal, window=window, prefix_len=prefix_len,
+                  attn_cap=attn_cap)
+        remat = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qg, k, v))
+        pre_hi = (-(-prefix_len // C) * C) if prefix_len else 0
+        outs = []
+        for j in range(nq):
+            hi = Tk if not causal else min(Tk, max((j + 1) * C, pre_hi))
+            lo = 0 if window is None else max(0, (j * C - window) // C * C)
+            args = (lo, hi, qg[:, j * C:(j + 1) * C],
+                    pos_q[:, j * C:(j + 1) * C], k, v, pos_k)
+            if remat:
+                outs.append(checkpoint(_query_block, *args, **kw,
+                                       use_reentrant=False))
+            else:
+                outs.append(_query_block(*args, **kw))
+        o = torch.cat(outs, dim=1).reshape(B, nq * C, Hq, Dv)
+        return o[:, :Tq]
+
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     s = softcap(s, attn_cap)
     s = s + _mask_bias(pos_q, pos_k, causal=causal, window=window,
@@ -256,13 +308,10 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        if T >= QUERY_CHUNK_THRESHOLD:
-            raise NotImplementedError(
-                "training-length attention (blocked query chunks) comes "
-                "with port slice 2")
+        chunk_q = QUERY_CHUNK if T >= QUERY_CHUNK_THRESHOLD else None
         o = gqa_attention(q, k, v, pos_q=positions, pos_k=positions,
                           causal=True, window=window, prefix_len=prefix_len,
-                          attn_cap=cfg.attn_softcap)
+                          attn_cap=cfg.attn_softcap, chunk_q=chunk_q)
         new_kv = {"k": k, "v": v}
     else:
         if block_tables is None:

@@ -6,9 +6,11 @@ loops over them in Python — eager PyTorch has no trace to keep small.
 ``weights.from_jax_params`` maps the reference's stacked tree onto this
 layout.
 
-API (slice 1: paged serving of dense GQA models):
+API (dense GQA models; slice 1 paged serving, slice 2 training):
 
   init_params(cfg, seed=0, device=...)          -> params
+  forward(params, cfg, tokens)                  -> logits [B,T,V]
+  loss_fn(params, cfg, batch)                   -> (loss, metrics)
   init_paged_cache(cfg, num_blocks, block_size) -> per-layer pools
   decode_step(params, cfg, token, cache, offset, block_tables, ...)
                                                 -> (logits, cache)
@@ -16,15 +18,20 @@ API (slice 1: paged serving of dense GQA models):
                                                 -> (logits | None, cache)
   copy_block(cache, src, dst)                   -> cache (copy-on-write)
 
-Cache pools are written in place and returned.
+Cache pools are written in place and returned.  The loss is
+sequence-chunked (logits for 512 tokens at a time, each chunk under
+``torch.utils.checkpoint``), so a 256k-vocab train step never holds
+[B,T,V] logits.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -38,6 +45,8 @@ REC_KINDS = MAMBA_KINDS + XLSTM_KINDS
 
 # layer kinds the port can build and run today
 PORTED_KINDS = ("attn", "local", "global")
+
+LOSS_CHUNK = 512
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -153,7 +162,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"
 
 
 def _embed(params, cfg: ArchConfig, tokens):
-    h = params["embed"][tokens]
+    h = F.embedding(tokens, params["embed"])
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
     return h
@@ -178,6 +187,72 @@ def _head(params, cfg: ArchConfig, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]["w"]
     logits = (h @ w).float()
     return L.softcap(logits, cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# training: full-sequence forward and the chunked loss
+# ---------------------------------------------------------------------------
+
+
+def forward(params, cfg: ArchConfig, tokens):
+    """Full-sequence logits [B,T,V] f32 (small vocab / small T only —
+    training uses ``loss_fn``, which chunks the head)."""
+    _check_ported(cfg)
+    T = tokens.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+    h = _embed(params, cfg, tokens)
+    h, _ = _run_segments(params, cfg, h, positions=positions)
+    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return _head(params, cfg, h)
+
+
+def _chunked_xent(params, cfg: ArchConfig, h, labels, mask):
+    """Sequence-chunked cross-entropy: logits never exceed [B,chunk,V];
+    each chunk's logits are recomputed in the backward pass.  Chunk sums
+    are added in sequence order, as the reference's scan adds them."""
+    B, T, D = h.shape
+    chunk = min(LOSS_CHUNK, T)
+    n_chunks = -(-T // chunk)
+    pad = n_chunks * chunk - T
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def chunk_loss(h_j, l_j, m_j):
+        logits = _head(params, cfg, h_j)                # [B,chunk,V] f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, l_j[..., None].long())[..., 0]
+        nll = (lse - gold) * m_j
+        return nll.sum(), m_j.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
+    for j in range(n_chunks):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        args = (h[:, sl], labels[:, sl], mask[:, sl])
+        s, c = (checkpoint(chunk_loss, *args, use_reentrant=False)
+                if remat else chunk_loss(*args))
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
+    """batch: {tokens [B,T], labels [B,T]} (integer tensors); labels < 0
+    are masked.  Returns (loss, metrics) with metrics {"xent", "aux"}, as
+    the reference's dense path (aux is the MoE balance loss: 0 here)."""
+    _check_ported(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    T = tokens.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+    h = _embed(params, cfg, tokens)
+    h, _ = _run_segments(params, cfg, h, positions=positions)
+    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    mask = (labels >= 0).float()
+    loss = _chunked_xent(params, cfg, h, torch.clamp(labels, min=0), mask)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

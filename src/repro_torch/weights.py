@@ -1,7 +1,9 @@
 """Carry the reference's parameters (and paged caches) across to the port.
 
 ``from_jax_params`` converts a parameter tree; ``unstack_layers`` converts
-any per-segment stacked tree, such as a paged cache.
+any per-segment stacked tree, such as a paged cache; ``reference_leaves``
+goes the other way, listing the port's tensors in the reference's leaf
+order and stacked shapes (the flat layout of the BSP superstep).
 
 The reference stacks each segment's unit as ``[reps, ...]`` leaves
 (``segments[s][f"l{j}"]``) and scans them; the port keeps one dict per
@@ -16,7 +18,8 @@ The input is the reference's tree with every leaf converted by
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from dataclasses import dataclass
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +62,74 @@ def unstack_layers(segments: Sequence[Dict[str, Any]], cfg: ArchConfig,
     return [_map(segments[si][f"l{j}"],
                  lambda a, r=r: _to_tensor(np.asarray(a)[r], device))
             for si, j, r in layer_index(cfg)]
+
+
+@dataclass(frozen=True)
+class StackedLeaf:
+    """One leaf of the reference's parameter tree, in the port's layout:
+    ``parts`` are the port's tensors whose flattened concatenation is the
+    reference's flattened leaf of shape ``shape``."""
+
+    path: str
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    parts: Tuple[torch.Tensor, ...]
+
+
+def _sorted_items(tree, path: str):
+    """(path, subtree-or-leaf) pairs of a nested dict/list in
+    ``jax.tree.leaves`` order: dict keys sorted as strings, lists in
+    order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_items(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _sorted_items(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def reference_leaves(params: Dict[str, Any], cfg: ArchConfig
+                     ) -> List[StackedLeaf]:
+    """The port's params as the reference's ``jax.tree.leaves(params)``:
+    same order, same (layer-stacked) shapes.
+
+    Top-level keys are sorted (``embed``, ``final_norm``, ``segments``);
+    each ``segments[s]["l{j}"]`` leaf is stacked ``[reps, ...]`` over the
+    segment's repeats, so its parts are the matching tensor of layers
+    ``(s, j, r)`` for r = 0..reps-1.  The engine's flat layout, buckets,
+    ZeRO shards and layout tag all follow this order."""
+    tree: Dict[str, Any] = {k: v for k, v in params.items() if k != "layers"}
+    groups: Dict[tuple, List[int]] = {}
+    for i, (si, j, _r) in enumerate(layer_index(cfg)):
+        groups.setdefault((si, j), []).append(i)
+    tree["segments"] = [
+        {f"l{j}": [params["layers"][i] for i in groups[(si, j)]]
+         for j in range(len(unit))}
+        for si, (unit, _reps) in enumerate(cfg.segments())]
+    out: List[StackedLeaf] = []
+    for key in sorted(tree):
+        if key != "segments":
+            for path, t in _sorted_items(tree[key], key):
+                out.append(StackedLeaf(path, tuple(t.shape), t.dtype, (t,)))
+            continue
+        for si, seg in enumerate(tree["segments"]):
+            for name in sorted(seg):
+                layers = seg[name]
+                for sub, first in _sorted_items(layers[0], ""):
+                    parts = tuple(_lookup(layer, sub) for layer in layers)
+                    out.append(StackedLeaf(
+                        f"segments/{si}/{name}{sub}",
+                        (len(parts),) + tuple(first.shape), first.dtype,
+                        parts))
+    return out
+
+
+def _lookup(tree, path: str):
+    for k in path.strip("/").split("/"):
+        tree = tree[k]
+    return tree
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg: ArchConfig,
