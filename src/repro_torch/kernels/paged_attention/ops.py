@@ -1,15 +1,19 @@
-"""Public paged-attention decode op: GQA grouping + dispatch by device.
+"""Public paged-attention decode ops: GQA grouping (B7) and absorbed MLA
+(B8), with dispatch by device.
 
-Port of ``repro/kernels/paged_attention/ops.py`` (GQA only; the MLA variant
-comes with the MLA architectures).  Decode-only (T == 1), forward-only.
+Port of ``repro/kernels/paged_attention/ops.py``.  Decode-only (T == 1),
+forward-only.
 
-  * CPU tensors  → ``ref.paged_attention_ref`` (gather, then attend);
-  * CUDA tensors → the hand-written kernel ``csrc/paged_attention.cu``
-    through ``paged_attention_kernel``, or an error.  Nothing falls back.
+  * CPU tensors  → ``ref.paged_attention_ref`` /
+    ``ref.paged_mla_attention_ref`` (gather, then attend);
+  * CUDA tensors → the hand-written kernels ``csrc/paged_attention.cu``
+    (through ``paged_attention_kernel``) and ``csrc/paged_mla_attention.cu``
+    (through ``paged_mla_attention_kernel``), or an error.  Nothing falls
+    back.
 
-``LAUNCHES`` counts the kernel's launches (``paged_attention_kernel`` adds
-one per launch and nowhere else), so a run can show that its decode path
-went through the kernel.
+``LAUNCHES`` and ``MLA_LAUNCHES`` count the kernels' launches (each kernel
+wrapper adds one per launch and nowhere else), so a run can show that its
+decode path went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import paged_attention_ref
+from .ref import paged_attention_ref, paged_mla_attention_ref
 
 LAUNCHES = 0
+MLA_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory a block may use (H100)
@@ -40,6 +45,18 @@ def _lib():
     lib.paged_attention_launch.restype = ctypes.c_int
     lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_lib():
+    lib = build.load("paged_mla_attention")
+    lib.paged_mla_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.paged_mla_attention_launch.restype = ctypes.c_int
+    lib.paged_mla_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.paged_mla_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -164,5 +181,117 @@ def paged_attention(q, k_pool, v_pool, tables, offset, *, scale=None,
     return o.reshape(B, 1, Hq, v_pool.shape[-1])
 
 
+def _check_mla_inputs(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths):
+    dev = q_eff.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_mla_attention_kernel needs CUDA tensors, "
+                         f"got q_eff on {dev}")
+    named = (("q_eff", q_eff), ("q_rope", q_rope), ("ckv_pool", ckv_pool),
+             ("kr_pool", kr_pool), ("tables", tables), ("lengths", lengths))
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q_eff on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named[:4]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte chunks)")
+        if t.dtype != q_eff.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q_eff {q_eff.dtype}: "
+                            "the kernel takes one dtype")
+    if q_eff.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q_eff dtype {q_eff.dtype} not supported "
+                        f"({sorted(map(str, _DTYPE_CODE))})")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("tables and lengths must be int32")
+    if q_eff.ndim != 3 or q_rope.ndim != 3 or ckv_pool.ndim != 3 \
+            or kr_pool.ndim != 3:
+        raise ValueError("q_eff [B,H,r], q_rope [B,H,dr] and pools "
+                         "[N,bs,r], [N,bs,dr] are 3-d")
+    B, H, r = q_eff.shape
+    dr = q_rope.shape[-1]
+    if tuple(q_rope.shape[:2]) != (B, H):
+        raise ValueError(f"q_rope {tuple(q_rope.shape)} does not match "
+                         f"q_eff {tuple(q_eff.shape)}")
+    N, bs = ckv_pool.shape[:2]
+    if ckv_pool.shape[2] != r or tuple(kr_pool.shape) != (N, bs, dr):
+        raise ValueError(f"pools {tuple(ckv_pool.shape)}, "
+                         f"{tuple(kr_pool.shape)} do not match r={r}, "
+                         f"dr={dr}")
+    if tables.ndim != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables {tuple(tables.shape)} must be [B={B}, n]")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} must be [B={B}]")
+
+
+def paged_mla_attention_kernel(q_eff, q_rope, ckv_pool, kr_pool, tables,
+                               lengths, *, scale: float):
+    """Launch the CUDA kernel: q_eff [B, H, r], q_rope [B, H, dr],
+    ckv_pool [N, bs, r], kr_pool [N, bs, dr], tables [B, n] int32, lengths
+    [B] int32, all contiguous on one CUDA device → [B, H, r] in q_eff's
+    dtype, on the current stream.  Raises on anything the kernel does not
+    take; table entries below each length must be valid block ids (the
+    kernel does not bounds-check them)."""
+    global MLA_LAUNCHES
+    _check_mla_inputs(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths)
+    B, H, r = q_eff.shape
+    dr = q_rope.shape[-1]
+    bs, n = ckv_pool.shape[1], tables.shape[1]
+    lib = _mla_lib()
+    code = _DTYPE_CODE[q_eff.dtype]
+    smem = lib.paged_mla_attention_smem_bytes(r, dr, n, bs, code)
+    if smem == 0:
+        raise ValueError(
+            f"kernel does not take r={r}, dr={dr} in {q_eff.dtype}: both "
+            f"must be multiples of {4 if code == 0 else 16}, r <= 512, "
+            "dr <= 128")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a table of n={n} blocks of {bs} per row needs "
+                         f"{smem} B of shared memory (> {_MAX_SMEM})")
+    out = torch.empty((B, H, r), dtype=q_eff.dtype, device=q_eff.device)
+    if B == 0 or H == 0 or n == 0:
+        return out.zero_()
+    with torch.cuda.device(q_eff.device):
+        stream = torch.cuda.current_stream(q_eff.device).cuda_stream
+        err = lib.paged_mla_attention_launch(
+            q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+            kr_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, H, r, dr, bs, n, float(scale), code, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_mla_attention kernel launch failed "
+                           f"(cudaError {err})")
+    MLA_LAUNCHES += 1
+    return out
+
+
+def paged_mla_attention(q_eff, q_rope, ckv_pool, kr_pool, tables, offset, *,
+                        scale: float):
+    """Absorbed MLA decode over paged latent pools.
+
+    q_eff: [B, 1, H, r] (q_nope·W_uk), q_rope: [B, 1, H, dr], ckv_pool
+    [N, bs, r], kr_pool [N, bs, 1, dr] (as cached) or [N, bs, dr], tables
+    [B, n], offset scalar or [B] (tokens already cached; the query sits at
+    that position) → latent attention output [B, 1, H, r]; the caller
+    applies W_uv (a weight contraction, not a cache one).
+    """
+    B, T, H, r = q_eff.shape
+    if T != 1:
+        raise ValueError(
+            f"paged_mla_attention is decode-only (T==1), got T={T}")
+    qe, qr = q_eff[:, 0], q_rope[:, 0]
+    kr = kr_pool[:, :, 0, :] if kr_pool.ndim == 4 else kr_pool
+    lengths = _lengths(offset, B, q_eff.device)
+    if q_eff.device.type == "cpu":
+        o = paged_mla_attention_ref(qe, qr, ckv_pool, kr, tables, lengths,
+                                    scale=scale)
+    else:
+        o = paged_mla_attention_kernel(
+            qe.contiguous(), qr.contiguous(), ckv_pool, kr,
+            tables.to(torch.int32), lengths, scale=scale)
+    return o[:, None]
+
+
 __all__ = ["paged_attention", "paged_attention_kernel",
-           "paged_attention_ref"]
+           "paged_attention_ref", "paged_mla_attention",
+           "paged_mla_attention_kernel", "paged_mla_attention_ref"]

@@ -1,13 +1,15 @@
-"""Plain PyTorch version of the paged-attention decode kernel.
+"""Plain PyTorch versions of the paged-attention decode kernels (GQA, B7;
+absorbed MLA, B8).
 
-The gather-then-attend computation the CUDA kernel fuses away (port of
+The gather-then-attend computations the CUDA kernels fuse away (port of
 ``repro/kernels/paged_attention/ref.py``): gather the virtual
 [B, n*bs, ...] KV view from the pool, then a dense masked-softmax attention
 over it.  Masking is by virtual position only — valid keys of row b are
 positions ``< lengths[b]`` (and, with a window, ``length-1-pos < window``)
 — which hides both future positions and whatever sentinel-padded table
-entries gather.  ``ops.paged_attention`` runs it for CPU tensors, and
-``chip_smoke.py`` holds the kernel against it on the card.
+entries gather.  ``ops.paged_attention`` and ``ops.paged_mla_attention`` run them for CPU
+tensors, and ``chip_smoke.py`` holds the kernels against them on the
+card.
 """
 
 from __future__ import annotations
@@ -44,3 +46,25 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths, *, scale: float,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v).to(q.dtype)
+
+
+def paged_mla_attention_ref(q_eff, q_rope, ckv_pool, kr_pool, tables,
+                            lengths, *, scale: float):
+    """q_eff: [B, H, r], q_rope: [B, H, dr], ckv_pool: [N, bs, r],
+    kr_pool: [N, bs, dr], tables: [B, n], lengths: [B] → [B, H, r].
+
+    ``c_kv`` is both the key's latent part and the value; the softmax is
+    rounded to the pool dtype before the PV product, as the reference."""
+    c_kv = _gather(ckv_pool, tables)                  # [B, S, r]
+    k_r = _gather(kr_pool, tables)                    # [B, S, dr]
+    S = c_kv.shape[1]
+    s = torch.einsum("bhr,bsr->bhs", q_eff, c_kv).float()
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope, k_r).float()
+    s = s * scale
+    pos = torch.arange(S, dtype=torch.int32, device=q_eff.device)[None,
+                                                                  None, :]
+    valid = pos < lengths.to(torch.int32)[:, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", p.to(c_kv.dtype),
+                        c_kv).to(q_eff.dtype)

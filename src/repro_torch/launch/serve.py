@@ -8,25 +8,33 @@
       --arch gemma2-2b-smoke --device cpu --requests 6 --prompt-len 8 \
       --gen 6 --max-slots 2
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b-smoke --device cpu --requests 6 \
+      --prompt-len 8 --gen 6 --max-slots 2
+
 Port of ``repro.launch.serve`` with the same flags, plus ``--device``
 (default ``cuda``; a CUDA request without CUDA raises).  This slice serves
 from the paged KV cache only, so ``--kv-mode`` accepts ``paged`` (the
 default); ``--mode wave``, ``--slot-state contiguous``, ``--rec-slots`` and
 ``--devices N > 1`` raise until the slices that port them.  Random-init
 params come from ``--seed``.  Prints the metrics report and the launch
-count of the paged-attention kernel.
+counts of the paged-attention kernels (GQA for attention layers, absorbed
+MLA for MLA layers).
 
-  --paged-kernel K  auto (the CUDA kernel on --device cuda, its plain
-                    version on the CPU) | ref (force gather-then-attend)
+  --paged-kernel K  auto (the CUDA kernels on --device cuda, their plain
+                    versions on the CPU) | ref (force gather-then-attend)
+
+``run(cfg, args)`` serves a parsed command line on a given config (e.g. one
+cut in depth); ``main`` parses, looks the config up and calls it.
 """
 
 import argparse
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Continuous-batching serving over the paged KV cache "
-                    "(slice 1 of the port: --kv-mode paged only).")
+                    "(the port: --kv-mode paged only).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where params, cache and kernels live (default "
@@ -74,8 +82,12 @@ def main(argv=None):
                     help="0 or 1: one card is one device (multi-device "
                          "serving is not ported)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def run(cfg, args: argparse.Namespace):
+    """Serve ``args.requests`` random prompts with ``cfg``; returns
+    (results {req_id: tokens}, metrics)."""
     if args.mode == "wave":
         raise NotImplementedError(
             "--mode wave (serve_waves) is not ported yet")
@@ -86,7 +98,7 @@ def main(argv=None):
     if args.rec_slots:
         raise NotImplementedError(
             f"--rec-slots {args.rec_slots}: recurrent state rows are not "
-            "ported yet (port slice 3)")
+            "ported yet (a later slice of the port)")
     if args.devices > 1:
         raise NotImplementedError(
             f"--devices {args.devices}: one card is one device; "
@@ -97,12 +109,10 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import transformer as T
-    from repro_torch.models.registry import get_config
     from repro_torch.serve import (EngineConfig, Request, ServeEngine,
                                    parse_arrival_spec)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
     params = T.init_params(cfg, args.seed, device=device)
 
     rng = np.random.default_rng(args.seed)
@@ -140,7 +150,7 @@ def main(argv=None):
 
     engine = ServeEngine(cfg, params, ecfg)
     print(f"slot-state plan: {engine.plan.describe()}")
-    launches0 = pa_ops.LAUNCHES
+    launches0, mla0 = pa_ops.LAUNCHES, pa_ops.MLA_LAUNCHES
     results = engine.run(requests)
     if device.type == "cuda":
         import torch
@@ -148,12 +158,19 @@ def main(argv=None):
     metrics = engine.metrics
 
     print(metrics.report())
-    print(f"paged_attention kernel launches: {pa_ops.LAUNCHES - launches0} "
-          f"(paged_kernel={engine.paged_kernel}, "
-          f"{metrics.decode_steps} decode steps x {cfg.num_layers} layers)")
+    print(f"paged_attention kernel launches: {pa_ops.LAUNCHES - launches0}, "
+          f"paged_mla_attention kernel launches: "
+          f"{pa_ops.MLA_LAUNCHES - mla0} (paged_kernel={engine.paged_kernel},"
+          f" {metrics.decode_steps} decode steps x {cfg.num_layers} layers)")
     shown = sorted(results)[:2]
     print("sample outputs:", [results[i][:8] for i in shown])
     return results, metrics
+
+
+def main(argv=None):
+    from repro_torch.models.registry import get_config
+    args = parse_args(argv)
+    return run(get_config(args.arch), args)
 
 
 if __name__ == "__main__":

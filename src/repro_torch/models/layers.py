@@ -10,12 +10,13 @@ reference so the parity tests compare like with like:
   * softmax and normalisers run in f32, activations in the param dtype;
   * attention is GQA-grouped (KV heads are never replicated in memory).
 
-Ported: what paged serving (slice 1) and training (slice 2) of dense GQA
-models reach: the attention core, unchunked and with checkpointed query
-blocks (``chunk_q``, training lengths), the paged KV primitives, GQA
-attention and the gated MLPs.  The online-softmax KV chunking of long
-inference prefill, the contiguous KV cache, MLA and MoE raise
-``NotImplementedError`` naming the slice that brings them.
+Ported: what paged serving (slices 1 and 3) and training (slice 2)
+reach: the attention core, unchunked and with checkpointed query blocks
+(``chunk_q``, training lengths), the paged KV primitives, GQA attention,
+MLA (multi-head latent attention with the absorbed-weight decode, slice
+3), the gated MLPs and MoE (sort-based capacity dispatch, slice 3).  The
+online-softmax KV chunking of long inference prefill and the contiguous
+KV cache raise ``NotImplementedError``.
 
 The training forward runs under autograd and writes nothing in place.  The
 paged primitives update the pool IN PLACE (``paged_scatter``,
@@ -33,8 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_mla_attention)
 
 QUERY_CHUNK_THRESHOLD = 2_048    # training: checkpointed query blocks
 QUERY_CHUNK = 512
@@ -52,6 +54,19 @@ def _normal(shape, std, *, dtype, device, generator):
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return (w * std).to(dtype)
+
+
+def _normal_stack(shape, std, *, dtype, device, generator):
+    """``_normal`` for an expert stack [E, ...], drawn one expert at a
+    time: at full width a [256, 7168, 2048] stack drawn whole would need
+    two 15 GB f32 temporaries beside its 7.5 GB of bf16."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        out[e] = _normal(shape[1:], std, dtype=dtype, device=device,
+                         generator=generator)
+    return out
 
 
 def _init_dense(d_in, d_out, *, dtype, device, generator, scale=None,
@@ -303,7 +318,7 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     if cfg.pos_embed != "rope":
         raise NotImplementedError(
-            f"pos_embed {cfg.pos_embed!r} comes with port slice 3")
+            f"pos_embed {cfg.pos_embed!r} is not ported yet")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -342,6 +357,149 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, *, device, generator):
+    m: MLAConfig = cfg.mla
+    dt = _dtype(cfg)
+    D, H = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dt, device=device, generator=generator)
+    return {
+        "q_down": _init_dense(D, m.q_lora_rank, **kw),
+        "q_norm": init_rmsnorm(m.q_lora_rank, dtype=dt, device=device),
+        "q_up": _init_dense(m.q_lora_rank, H * qk_dim, **kw),
+        "kv_down": _init_dense(D, m.kv_lora_rank + m.qk_rope_head_dim, **kw),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype=dt, device=device),
+        "kv_up": _init_dense(m.kv_lora_rank,
+                             H * (m.qk_nope_head_dim + m.v_head_dim), **kw),
+        "wo": _init_dense(H * m.v_head_dim, D, **kw),
+    }
+
+
+def _absorbed_weights(p, m: MLAConfig, H: int):
+    """``kv_up`` split per head into W_uk [r,H,dn] and W_uv [r,H,dv]
+    (strided views)."""
+    dn, dv = m.qk_nope_head_dim, m.v_head_dim
+    w_up = p["kv_up"]["w"].reshape(m.kv_lora_rank, H, dn + dv)
+    return w_up[..., :dn], w_up[..., dn:]
+
+
+def apply_mla(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
+              cache_offset=None, block_tables=None, paged_kernel="auto"):
+    """Latent-cache MLA.  x: [B,T,D] → (out [B,T,D], new_cache).
+
+    Without a cache: the whole-sequence forward.  Paged mode only
+    otherwise: ``kv_cache`` is ``{"c_kv": [N,bs,r], "k_rope":
+    [N,bs,1,dr]}`` (written in place) addressed by ``block_tables``.
+    Prefill (T>1) gathers the latents and expands them through ``kv_up``
+    into per-head K and V.  Decode (T==1) stays in latent space (weight
+    absorption): ``paged_kernel="auto"`` (the default) routes it through
+    ``kernels.paged_attention.paged_mla_attention`` (the CUDA kernel on a
+    CUDA pool, its plain version on a CPU pool); ``"ref"`` gathers, then
+    runs ``_mla_absorbed_decode``, as the reference's "ref" lowering."""
+    m: MLAConfig = cfg.mla
+    B, T, D = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = dense(p["q_up"], rms_norm(p["q_norm"], dense(p["q_down"], x),
+                                  cfg.norm_eps)).reshape(B, T, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = dense(p["kv_down"], x)
+    c_kv = rms_norm(p["kv_norm"], kv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)                       # [B,T,1,dr]
+
+    if kv_cache is not None:
+        if block_tables is None:
+            raise NotImplementedError(
+                "the contiguous latent cache is not ported yet; the port "
+                "serves MLA from the paged cache only")
+        if paged_kernel not in ("auto", "ref"):
+            raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
+        ckv_pool = paged_scatter(kv_cache["c_kv"], c_kv, block_tables,
+                                 cache_offset)
+        kr_pool = paged_scatter(kv_cache["k_rope"], k_rope, block_tables,
+                                cache_offset)
+        new_cache = {"c_kv": ckv_pool, "k_rope": kr_pool}
+        if T == 1 and paged_kernel == "auto":
+            # absorbed decode straight off the pools: the gather and the
+            # [B,S] latent view never exist
+            w_k, w_v = _absorbed_weights(p, m, H)
+            q_eff = torch.einsum("bthd,rhd->bthr", q_nope, w_k)
+            o_lat = paged_mla_attention(
+                q_eff, q_rope, ckv_pool, kr_pool, block_tables,
+                cache_offset, scale=1.0 / math.sqrt(dn + dr))
+            o = torch.einsum("bthr,rhd->bthd", o_lat, w_v)
+            out = dense(p["wo"], o.reshape(B, T, H * dv))
+            return out, new_cache
+        c_kv = paged_gather(ckv_pool, block_tables)
+        k_rope = paged_gather(kr_pool, block_tables)
+        S = c_kv.shape[1]
+        pos_k = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        pos_q = positions if positions.ndim > 1 else positions[None, :]
+    else:
+        S = T
+        pos_k = positions
+        pos_q = positions
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+
+    if kv_cache is not None and T == 1:
+        o = _mla_absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                                 cache_offset)
+        out = dense(p["wo"], o.reshape(B, T, H * dv))
+        return out, new_cache
+
+    up = dense(p["kv_up"], c_kv).reshape(B, S, H, dn + dv)
+    k_nope, v = up[..., :dn], up[..., dn:]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    # training lengths block the queries; offset prefill stays below the
+    # threshold (``prefill_chunk`` refuses longer chunks)
+    chunk_q = QUERY_CHUNK if (kv_cache is None
+                              and T >= QUERY_CHUNK_THRESHOLD) else None
+    o = gqa_attention(qf, k, v, pos_q=pos_q, pos_k=pos_k, causal=True,
+                      attn_cap=None, scale=1.0 / math.sqrt(dn + dr),
+                      chunk_q=chunk_q)
+    out = dense(p["wo"], o.reshape(B, T, H * dv))
+    return out, new_cache
+
+
+def _mla_absorbed_decode(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
+                         offset):
+    """One-token MLA attention in latent space (weight absorption):
+
+      scores = (q_nope·W_uk)·c_kv + q_rope·k_rope     [B,H,1,S]
+      out    = (softmax·c_kv)·W_uv                    [B,1,H,dv]
+
+    Positions ``<= offset`` (scalar or per-row [B]) are valid; the rest
+    score -1e30.  The reference's ``scores_sshard`` sharding hint has no
+    counterpart on one device."""
+    m = cfg.mla
+    B, T, H, dn = q_nope.shape
+    S = c_kv.shape[1]
+    w_k, w_v = _absorbed_weights(p, m, H)
+
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope, w_k)       # [B,1,H,r]
+    s = torch.einsum("bthr,bsr->bhts", q_eff, c_kv).float()
+    s = s + torch.einsum("bthd,bsd->bhts", q_rope,
+                         k_rope[:, :, 0]).float()
+    s = s / math.sqrt(dn + m.qk_rope_head_dim)
+    off = torch.as_tensor(offset, device=s.device).reshape(-1, 1, 1, 1)
+    valid = torch.arange(S, dtype=torch.int32,
+                         device=s.device)[None, None, None, :] <= off
+    s = torch.where(valid, s, -1e30)
+    prob = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhts,bsr->bthr", prob.to(c_kv.dtype), c_kv)
+    return torch.einsum("bthr,rhd->bthd", o_lat, w_v)         # [B,1,H,dv]
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -370,3 +528,117 @@ def apply_mlp(p, cfg: ArchConfig, x):
         return dense(p["w_down"], _gelu_tanh(dense(p["w_up"], x)))
     act = F.silu if cfg.mlp == "swiglu" else _gelu_tanh
     return dense(p["w_down"], act(dense(p["w_gate"], x)) * dense(p["w_up"], x))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ArchConfig, *, device, generator):
+    mo: MoEConfig = cfg.moe
+    dt = _dtype(cfg)
+    D, E, Fd = cfg.d_model, mo.num_experts, mo.d_expert
+    kw = dict(dtype=dt, device=device, generator=generator)
+    scale_in = 1.0 / math.sqrt(D)
+    scale_out = 1.0 / math.sqrt(Fd)
+    p = {
+        "router": _init_dense(D, E, dtype=torch.float32, device=device,
+                              generator=generator),
+        "w_gate": _normal_stack((E, D, Fd), scale_in, **kw),
+        "w_up": _normal_stack((E, D, Fd), scale_in, **kw),
+        "w_down": _normal_stack((E, Fd, D), scale_out, **kw),
+    }
+    if mo.num_shared:
+        p["shared"] = init_mlp(cfg, d_ff=Fd * mo.num_shared, device=device,
+                               generator=generator)
+    return p
+
+
+def _router_gates(p, mo: MoEConfig, x2d):
+    """Routing in f32: sigmoid (DeepSeek-V3) or softmax scores, top-k,
+    then (``norm_topk``) gates renormalised over the k picks."""
+    logits = x2d.float() @ p["router"]["w"].float()
+    if mo.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(scores, mo.top_k, dim=-1)          # [T,k]
+    if mo.norm_topk:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx, scores
+
+
+def moe_load_balance_loss(scores, idx, num_experts):
+    """Switch-style load-balance aux loss (mean prob × token fraction)."""
+    frac_prob = scores.mean(0)
+    counts = torch.zeros((num_experts,), dtype=torch.float32,
+                         device=scores.device)
+    counts = counts.index_add(0, idx.reshape(-1),
+                              torch.ones(idx.numel(), dtype=torch.float32,
+                                         device=scores.device))
+    frac_tok = counts / torch.clamp(counts.sum(), min=1.0)
+    return num_experts * torch.sum(frac_prob * frac_tok)
+
+
+def apply_moe(p, cfg: ArchConfig, x):
+    """x: [B,T,D] → (y, aux_loss).  Group-wise sort-based capacity
+    dispatch, as the reference: the group is the batch row, with local
+    capacity C = ceil(T·k/E·cf).  Per row:
+
+      1. top-k routing → (token, expert, gate) triples in (t, k) order;
+      2. a stable sort by expert; position-in-expert by segment offsets;
+      3. a [B,E,C,D] buffer gathered through an [E,C] slot→token map
+         (row T of the padded input reads zeros); batched expert GEMMs
+         over every expert;
+      4. the gate-weighted scatter-add back; tokens past an expert's
+         capacity drop (GShard).  Then the shared expert.
+
+    The reference's ``moe_buf`` sharding hint has no counterpart on one
+    device.  On CUDA the combine's ``index_add_`` uses atomics, so its
+    bf16 sums may round differently from run to run."""
+    mo: MoEConfig = cfg.moe
+    B, T, D = x.shape
+    E, K = mo.num_experts, mo.top_k
+    C = max(1, int(math.ceil(T * K / E * mo.capacity_factor)))
+    dev = x.device
+
+    gates, idx, scores = _router_gates(p, mo, x.reshape(B * T, D))
+    flat_e = idx.reshape(B, T * K)                            # (t, k) order
+    flat_g = gates.reshape(B, T * K)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    e_s = torch.gather(flat_e, 1, order)                      # [B, T*K]
+    g_s = torch.gather(flat_g, 1, order)
+    t_s = flat_t[order]
+    starts = torch.searchsorted(
+        e_s, torch.arange(E, device=dev).expand(B, E).contiguous())
+    pos = torch.arange(T * K, device=dev) - torch.gather(starts, 1, e_s)
+    keep = pos < C
+    slot = torch.where(keep, pos, C)                          # C: overflow
+    rows = torch.arange(B, device=dev)[:, None]
+    slot_tok = torch.full((B, E, C + 1), T, dtype=torch.int64, device=dev)
+    slot_tok[rows, e_s, slot] = torch.where(keep, t_s, T)
+    slot_tok = slot_tok[:, :, :C]                             # [B,E,C]
+    w = g_s * keep.float()
+
+    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)     # [B,T+1,D]
+    buf = x_pad[rows, slot_tok.reshape(B, E * C)].reshape(B, E, C, D)
+
+    act = F.silu if cfg.mlp == "swiglu" else _gelu_tanh
+    h = act(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
+        * torch.einsum("becd,edf->becf", buf, p["w_up"])
+    y_exp = torch.einsum("becf,efd->becd", h, p["w_down"])     # [B,E,C,D]
+
+    contrib = y_exp[rows, e_s, torch.clamp(slot, max=C - 1)] \
+        * w.to(y_exp.dtype)[..., None]                        # [B,T*K,D]
+    y = torch.zeros((B * T, D), dtype=y_exp.dtype, device=dev)
+    y.index_add_(0, (rows * T + t_s).reshape(-1),
+                 contrib.reshape(B * T * K, D))
+    y = y.reshape(B, T, D)
+
+    if mo.num_shared:
+        y = y + apply_mlp(p["shared"], cfg, x.reshape(B * T, D)
+                          ).reshape(B, T, D)
+    aux = moe_load_balance_loss(scores, idx.reshape(B * T, K), E)
+    return y, aux

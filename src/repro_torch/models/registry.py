@@ -1,14 +1,16 @@
 """Architecture registry: ``--arch <id>`` → ArchConfig, plus param counting.
 
-Mirrors ``repro/models/registry.py``.  The port serves one architecture so
-far (slice 1: gemma2-2b); the other nine ids of the reference are known
-here and raise ``NotImplementedError`` until the slice that ports their
-layers (MLA, MoE, SSM, frontends) lands.
+Mirrors ``repro/models/registry.py``.  The port carries gemma2-2b (slices
+1 and 2) and deepseek-v3-671b (slice 3: MLA, MoE, MTP params); the other
+eight ids of the reference are known here and raise
+``NotImplementedError`` until the slice that ports their layers (SSM,
+frontends, the other configs) lands.
 """
 
 from __future__ import annotations
 
 import importlib
+import math
 from typing import List
 
 import torch
@@ -29,7 +31,7 @@ ARCH_IDS: List[str] = [
 ]
 
 # ids whose config (and layers) the port carries today
-PORTED_IDS: List[str] = ["gemma2-2b"]
+PORTED_IDS: List[str] = ["gemma2-2b", "deepseek-v3-671b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -43,8 +45,8 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if base not in PORTED_IDS:
         raise NotImplementedError(
-            f"arch {base!r} is not ported yet (port slice 3: the remaining "
-            f"architectures); ported: {PORTED_IDS}")
+            f"arch {base!r} is not ported yet (a later slice of the port: "
+            f"the remaining architectures); ported: {PORTED_IDS}")
     cfg = importlib.import_module(_module_name(base)).CONFIG
     return cfg.reduced() if smoke else cfg
 
@@ -73,11 +75,40 @@ def _leaves(tree):
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Total parameter count from the port's own parameter shapes.  Dense
-    architectures only (every parameter is active per token); MoE counting
-    comes with the MoE layers."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE parameter counting comes with the MoE layers (port slice 3)")
-    return sum(leaf.numel() for leaf in _leaves(param_shapes(cfg)))
+    """Total (or per-token-active) parameter count, from the port's own
+    parameter shapes on the ``meta`` device (no storage).
 
+    The leaves are walked as the reference's ``jax.tree.leaves`` sees them
+    (``weights.reference_leaves``: layer-stacked ``[reps, ...]`` segment
+    leaves, the MTP list), so the counts equal the reference's.  Active
+    MoE params: routed expert weights count at top_k/num_experts;
+    everything else (router, shared experts, attention, norms) is always
+    on."""
+    from repro_torch.weights import reference_leaves
+    total = 0
+    for leaf in reference_leaves(param_shapes(cfg), cfg):
+        n = math.prod(leaf.shape)
+        if active_only and cfg.moe is not None and _is_routed_expert(
+                leaf.path, leaf.shape, cfg):
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
+    return total
+
+
+def _is_routed_expert(path: str, shape, cfg: ArchConfig) -> bool:
+    keys = path.split("/")
+    if "ffn" not in keys or "shared" in keys or "router" in keys:
+        return False
+    # routed expert tensors carry the expert dim: [..., E, D, F]-shaped
+    return any(s == cfg.moe.num_experts for s in shape)
+
+
+def embedding_params(cfg: ArchConfig) -> int:
+    n = cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        n *= 2
+    return n
+
+
+def non_embedding_params(cfg: ArchConfig, active_only=False) -> int:
+    return count_params(cfg, active_only) - embedding_params(cfg)

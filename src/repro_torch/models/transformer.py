@@ -6,7 +6,8 @@ loops over them in Python — eager PyTorch has no trace to keep small.
 ``weights.from_jax_params`` maps the reference's stacked tree onto this
 layout.
 
-API (dense GQA models; slice 1 paged serving, slice 2 training):
+API (dense GQA models: slice 1 paged serving, slice 2 training; MLA and
+MoE models, DeepSeek-V3: slice 3 paged serving):
 
   init_params(cfg, seed=0, device=...)          -> params
   forward(params, cfg, tokens)                  -> logits [B,T,V]
@@ -18,7 +19,10 @@ API (dense GQA models; slice 1 paged serving, slice 2 training):
                                                 -> (logits | None, cache)
   copy_block(cache, src, dst)                   -> cache (copy-on-write)
 
-Cache pools are written in place and returned.  The loss is
+Cache pools are written in place and returned.  ``params["mtp"]`` (the
+multi-token-prediction modules) is built and carried as the reference's,
+but only the training loss reads it, and training MTP/MoE models is not
+ported: ``loss_fn`` raises for them.  The loss is
 sequence-chunked (logits for 512 tokens at a time, each chunk under
 ``torch.utils.checkpoint``), so a 256k-vocab train step never holds
 [B,T,V] logits.
@@ -41,24 +45,29 @@ ATTN_KINDS = ("attn", "attn_moe", "local", "global")
 MLA_KINDS = ("mla", "mla_moe")
 MAMBA_KINDS = ("mamba", "mamba_moe")
 XLSTM_KINDS = ("mlstm", "slstm")
+MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
 REC_KINDS = MAMBA_KINDS + XLSTM_KINDS
 
 # layer kinds the port can build and run today
-PORTED_KINDS = ("attn", "local", "global")
+PORTED_KINDS = ("attn", "attn_moe", "local", "global", "mla", "mla_moe")
 
 LOSS_CHUNK = 512
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig, *, training: bool = False) -> None:
     for kind in cfg.layer_pattern:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet (port "
-                "slice 3: MLA, MoE and recurrent layers)")
-    if cfg.frontend or cfg.prefix_lm or cfg.mtp_depth:
+                f"{cfg.name}: layer kind {kind!r} is not ported yet "
+                "(recurrent layers come with a later slice of the port)")
+    if cfg.frontend or cfg.prefix_lm:
         raise NotImplementedError(
-            f"{cfg.name}: frontends, prefix-LM and MTP come with port "
-            "slice 3")
+            f"{cfg.name}: frontends and prefix-LM are not ported yet")
+    if training and (cfg.mtp_depth or cfg.moe is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: training MTP and MoE models (the MTP loss, the "
+            "0.01 * aux balance loss, the MoE backward) is not ported yet; "
+            "the port serves them")
 
 
 # ---------------------------------------------------------------------------
@@ -67,41 +76,55 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 
 def init_block(cfg: ArchConfig, kind: str, *, device, generator):
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt = L._dtype(cfg)
+    mixer = L.init_mla if kind in MLA_KINDS else L.init_attention
     p: Dict[str, Any] = {
         "norm1": L.init_rmsnorm(cfg.d_model, dtype=dt, device=device),
-        "attn": L.init_attention(cfg, device=device, generator=generator),
+        "attn": mixer(cfg, device=device, generator=generator),
         "norm2": L.init_rmsnorm(cfg.d_model, dtype=dt, device=device),
     }
     if cfg.norm_style == "sandwich":
         p["post1"] = L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)
         p["post2"] = L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)
-    p["ffn"] = L.init_mlp(cfg, device=device, generator=generator)
+    ffn = L.init_moe if kind in MOE_KINDS else L.init_mlp
+    p["ffn"] = ffn(cfg, device=device, generator=generator)
     return p
 
 
 def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
                 cache=None, offset=None, prefix_len=None, block_tables=None,
                 paged_kernel="auto"):
-    """Returns (h, new_cache)."""
+    """Returns (h, new_cache, aux): aux is the MoE load-balance loss (an
+    f32 zero for dense blocks)."""
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (port slice 3)")
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     sandwich = cfg.norm_style == "sandwich"
     x = L.rms_norm(p["norm1"], h, cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else None
-    mix, new_cache = L.apply_attention(
-        p["attn"], cfg, x, positions=positions, kv_cache=cache,
-        cache_offset=offset, window=window, prefix_len=prefix_len,
-        block_tables=block_tables, paged_kernel=paged_kernel)
+    if kind in MLA_KINDS:
+        mix, new_cache = L.apply_mla(
+            p["attn"], cfg, x, positions=positions, kv_cache=cache,
+            cache_offset=offset, block_tables=block_tables,
+            paged_kernel=paged_kernel)
+    else:
+        window = cfg.sliding_window if kind == "local" else None
+        mix, new_cache = L.apply_attention(
+            p["attn"], cfg, x, positions=positions, kv_cache=cache,
+            cache_offset=offset, window=window, prefix_len=prefix_len,
+            block_tables=block_tables, paged_kernel=paged_kernel)
     if sandwich:
         mix = L.rms_norm(p["post1"], mix, cfg.norm_eps)
     h = h + mix
     x = L.rms_norm(p["norm2"], h, cfg.norm_eps)
-    y = L.apply_mlp(p["ffn"], cfg, x)
+    if kind in MOE_KINDS:
+        y, aux = L.apply_moe(p["ffn"], cfg, x)
+    else:
+        y = L.apply_mlp(p["ffn"], cfg, x)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if sandwich:
         y = L.rms_norm(p["post2"], y, cfg.norm_eps)
-    return h + y, new_cache
+    return h + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -111,16 +134,26 @@ def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
 
 def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int, *,
                      device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """Pooled paged cache, one {"k", "v"} pair per layer, each
-    [num_blocks, block_size, Hkv, Dh] (axis 0 = PHYSICAL BLOCK).  Zeroed,
-    as the reference's ``jnp.zeros``: a masked slot must never hold NaN."""
+    """Pooled paged cache, one dict per layer (axis 0 = PHYSICAL BLOCK):
+    attention layers {"k", "v"}, each [num_blocks, block_size, Hkv, Dh];
+    MLA layers the latent pair {"c_kv": [num_blocks, block_size, r],
+    "k_rope": [num_blocks, block_size, 1, dr]}.  Zeroed, as the
+    reference's ``jnp.zeros``: a masked slot must never hold NaN."""
     _check_ported(cfg)
     dev = resolve_device(device)
     dt = L._dtype(cfg)
-    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in cfg.layer_pattern]
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    N, bs = num_blocks, block_size
+    out = []
+    for kind in cfg.layer_pattern:
+        if kind in MLA_KINDS:
+            m = cfg.mla
+            out.append({"c_kv": z(N, bs, m.kv_lora_rank),
+                        "k_rope": z(N, bs, 1, m.qk_rope_head_dim)})
+        else:
+            out.append({"k": z(N, bs, cfg.num_kv_heads, cfg.head_dim),
+                        "v": z(N, bs, cfg.num_kv_heads, cfg.head_dim)})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +186,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"
                                        dtype=dt, device=dev, generator=gen)
     params["layers"] = [init_block(cfg, kind, device=dev, generator=gen)
                         for kind in cfg.layer_pattern]
+    if cfg.mtp_depth:
+        kind = "mla" if cfg.mla else "attn"
+        params["mtp"] = [
+            {"proj": L._init_dense(2 * D, D, dtype=dt, device=dev,
+                                   generator=gen),
+             "block": init_block(cfg, kind, device=dev, generator=gen),
+             "norm": L.init_rmsnorm(D, dtype=dt, device=dev)}
+            for _ in range(cfg.mtp_depth)]
     return params
 
 
@@ -171,14 +212,15 @@ def _embed(params, cfg: ArchConfig, tokens):
 def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
                   offset=None, prefix_len=None, block_tables=None,
                   paged_kernel="auto"):
-    """Run every layer in order (the reference scans stacked segments)."""
+    """Run every layer in order (the reference scans stacked segments).
+    The blocks' MoE aux losses are dropped: only training reads them."""
     new_caches = []
     for i, kind in enumerate(cfg.layer_pattern):
         c = None if caches is None else caches[i]
-        h, nc = apply_block(params["layers"][i], cfg, kind, h,
-                            positions=positions, cache=c, offset=offset,
-                            prefix_len=prefix_len, block_tables=block_tables,
-                            paged_kernel=paged_kernel)
+        h, nc, _aux = apply_block(
+            params["layers"][i], cfg, kind, h, positions=positions, cache=c,
+            offset=offset, prefix_len=prefix_len, block_tables=block_tables,
+            paged_kernel=paged_kernel)
         new_caches.append(nc)
     return h, (None if caches is None else new_caches)
 
@@ -241,8 +283,9 @@ def _chunked_xent(params, cfg: ArchConfig, h, labels, mask):
 def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
     """batch: {tokens [B,T], labels [B,T]} (integer tensors); labels < 0
     are masked.  Returns (loss, metrics) with metrics {"xent", "aux"}, as
-    the reference's dense path (aux is the MoE balance loss: 0 here)."""
-    _check_ported(cfg)
+    the reference's dense path (aux is the MoE balance loss: 0 here).
+    Raises for MTP and MoE models, whose training is not ported yet."""
+    _check_ported(cfg, training=True)
     tokens, labels = batch["tokens"], batch["labels"]
     T = tokens.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)

@@ -23,9 +23,10 @@ the block pool can hold its prompt:
     the bits differ from JAX's).
 
 Where the attention of a decode step runs follows ``paged_kernel``:
-"auto" routes it through ``kernels.paged_attention`` (the CUDA kernel when
-the cache lives on CUDA, its plain version on the CPU); "ref" forces the
-reference's gather-then-attend lowering.  The engine's device is its
+"auto" routes it through ``kernels.paged_attention`` (the CUDA kernels when
+the cache lives on CUDA: GQA for attention layers, absorbed MLA for MLA
+layers; their plain versions on the CPU); "ref" forces the reference's
+gather-then-attend lowering.  The engine's device is its
 params' device.
 
 The engine serves from the paged KV cache only.  Not ported yet: the
@@ -131,7 +132,7 @@ class ServeEngine:
         if self.plan.has_recurrent:
             raise NotImplementedError(
                 "recurrent / hybrid state rows are not ported yet "
-                "(port slice 3)")
+                "(a later slice of the port)")
         self.paged_kernel = ecfg.paged_kernel
         self._chunk = min(ecfg.prefill_chunk, ecfg.max_len)
 

@@ -10,7 +10,10 @@ The reference stacks each segment's unit as ``[reps, ...]`` leaves
 layer.  Layer ``i`` of a segment whose unit has ``u`` kinds is unit entry
 ``j = i % u`` at repeat ``r = i // u`` — for gemma2 (``(("local",
 "global"), 13)``) layer ``i`` is ``segments[0][f"l{i % 2}"][...][i // 2]``.
-Paged caches are stacked the same way, so the same mapping serves both.
+Paged caches are stacked the same way, so the same mapping serves both
+(attention {"k", "v"} pools and MLA {"c_kv", "k_rope"} pools alike).
+Leaves outside ``segments`` carry over as they are, the MTP list of
+DeepSeek-V3 included; the MoE router stays f32.
 
 The input is the reference's tree with every leaf converted by
 ``np.asarray`` (numpy arrays; no JAX object crosses over).

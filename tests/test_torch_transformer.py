@@ -58,8 +58,8 @@ def test_config_and_param_count_match_reference(name):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        R.get_config("deepseek-v3-671b-smoke")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        R.get_config("xlstm-1.3b-smoke")
     with pytest.raises(KeyError):
         R.get_config("nope")
 
