@@ -10,8 +10,24 @@ The quickest proof that the port starts on the card.  Phases, in order
                 nvcc (sm_90a), print the build seconds, the compiler's
                 register/spill report and the card's name and power limit;
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card: paged attention (B7) in f32 and bf16 (bf16 per output
-                row, relative to the row's RMS), at gemma2-2b's shape
+                card.  First the public kernel ops' kernels (slice 4):
+                the tree sums (B3, B4) bit for bit at N 1/2/13/16 and
+                ragged widths, f32/bf16 in and out, with ±0, ±Inf and
+                subnormal columns; the GEMM (B6) at gemma2-2b's MLP
+                up-projection, a DeepSeek-V3 decode projection and a
+                ragged shape in f32 and bf16; flash attention (B5) at
+                gemma2-2b's global layer (with the autograd backward)
+                and local 8192-token layer, DeepSeek-V3's MLA prefill,
+                the two padding cases and a window whose last rows see
+                no key, NaN past Tk; each call must add one to its
+                launch count.  Then B3-B6 timed beside their plain
+                versions, library yardsticks (``torch.sum``,
+                ``torch.matmul``, SDPA without the softcap) and bounds,
+                and the ops path: the public ops driven once at those
+                shapes, their four counts set to 0 just before and read
+                just after.  Then paged attention (B7) in f32 and bf16
+                (bf16 per output row, relative to the row's RMS), at
+                gemma2-2b's shape
                 (Hkv 4, G 2, d 256, bs 16) and three more shapes, ragged
                 lengths up to 8192 over sentinel-padded tables, window
                 None / 4096 / small, softcap None / 50; then time kernel,
@@ -343,6 +359,19 @@ def _time_ms(torch, fn, calls, reps):
     return out
 
 
+def _timed(torch, fns, calls, reps):
+    """Device ms per call (CUDA graph) of each of ``fns`` (kernel, plain,
+    library), in turns plain, kernel, kernel, plain, library."""
+    t = {}
+    for label in ("plain", "kernel", "kernel2", "plain2", "library"):
+        fn = fns.get(label.rstrip("2"))
+        if fn is not None:
+            t[label] = _time_ms(torch, fn, calls, reps)["graph"]
+    return dict(ms=min(t["kernel"], t["kernel2"]),
+                plain_ms=min(t["plain"], t["plain2"]),
+                library_ms=t.get("library"))
+
+
 def phase_timing(torch, ops, ref, cfg):
     """Kernel, plain version and gather + SDPA at the serve shape: 8 rows,
     gemma2-2b's heads, lengths of a mid-serve step; one pool pair per layer
@@ -633,8 +662,10 @@ def _codec_keep(torch, M, dev, seed):
 
 
 def _same_bits(torch, a, b):
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """Equal dtype, shape and bits (f32 or a 2-byte dtype)."""
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(bits), b.view(bits))
 
 
 def _finite_err(torch, a, b):
@@ -705,22 +736,529 @@ def phase_codec_timing(torch, tops, tref, codecs, M):
                        plain=lambda i: tref.decode_add_int8(keep, q, sc),
                        library=lambda i: torch.addcmul(k2, q2, s2))
             per = B2_BYTES_PER_ELEM
-        t = {}
-        for label in ("plain", "kernel", "kernel2", "plain2", "library"):
-            t[label] = _time_ms(torch, fns[label.rstrip("2")], 3,
-                                reps=3)["graph"]
+        res[name] = r = _timed(torch, fns, 3, reps=3)
         del wire
         bound = M * per / HBM_BYTES_PER_S * 1e3
-        res[name] = dict(ms=min(t["kernel"], t["kernel2"]),
-                         plain_ms=min(t["plain"], t["plain2"]),
-                         library_ms=t["library"], bound_ms=bound,
-                         bound_by="bytes")
+        r.update(bound_ms=bound, bound_by="bytes")
         print(f"  {'B1' if name == 'bf16' else 'B2'} {name} M={M}: kernel "
-              f"{res[name]['ms']:.4f} ms, plain {res[name]['plain_ms']:.4f}"
-              f" ms, library {t['library']:.4f} ms, bound {bound:.4f} ms "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+              f" ms, library {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
               f"({per:g} B/elem at {HBM_BYTES_PER_S:.3g} B/s); device time "
               f"per call from a CUDA graph of 3 calls")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the public kernel ops (B3, B4, B6, B5) against their plain versions
+# ---------------------------------------------------------------------------
+
+# B3/B4 vs their plain versions: the same f32 adds in the same pairing (B4's
+# first level the same fused multiply-add), so equal bit for bit.  N runs
+# every pass plan of the kernel: 1 and 2 pad to 2 (one level), 3 one pass
+# of 2 levels, 8 one pass of 3 (the timed count), 13 and 16 a pass of 3
+# then 1, 20 then 2, 40 then 3, 100 then 3 in place and 1.  D = 700 and
+# 300,004 take the vector path, 1, 4097 and 300,001 the scalar one; the
+# 300,00x columns outnumber a pass's threads, so its grid-stride loop goes
+# round more than once (as does B4's at N = 100, nb = 1100).
+TREE_NS = [1, 2, 3, 8, 13, 16, 20, 40, 100]
+TREE_DS = [1, 700, 4097, 300_001, 300_004]
+INT8_TREE_NBS = [1, 3, 37, 1100]
+# the timed shape: 8 micro-batches' rows of one 256 MB f32 gradient bucket
+# (the micro-batch accumulation the tree sum was written for)
+TREE_TIME_N, TREE_TIME_D = 8, 67_108_864
+
+# B6 cases: gemma2-2b's MLP up-projection at a train rank's micro-batch
+# (2 x 1024 tokens), a DeepSeek-V3 expert up-projection at a decode step (8
+# rows), and a ragged shape in both dtypes (K and N not multiples of 8: the
+# kernel's element-wise load path).  The first is timed.
+GEMM_CASES = [
+    dict(name="gemma2-2b MLP up, train micro-batch", M=2048, K=2304,
+         N=9216, dtype="bfloat16"),
+    dict(name="DeepSeek-V3 expert up, decode", M=8, K=7168, N=2048,
+         dtype="bfloat16"),
+    dict(name="ragged", M=1000, K=2300, N=770, dtype="float32"),
+    dict(name="ragged", M=1000, K=2300, N=770, dtype="bfloat16")]
+# f32: the kernel's fmaf chain and the plain version's f32 matmul sum the
+# same K products in another order (~1e-6 relative): the tests' 2e-4, as
+# rtol and atol.  bf16: both round an f32 sum of the same products to bf16,
+# so they differ by at most one bf16 step, 2^-7 of an element; a row's
+# largest elements reach ~4.5x its RMS (9216 near-normal outputs), so one
+# step there is 3.5e-2 of the row RMS; 4e-2.  A dropped K tile (32 of
+# 2304) would move every element by ~0.12 of the RMS.
+GEMM_F32_TOL = 2e-4
+GEMM_BF16_ROW_RTOL = 4e-2
+
+# B5 cases.  (a) gemma2-2b's global layer at a train rank's batch, forward
+# and the autograd backward; (b) its local layer at the full 8192 context;
+# (c) DeepSeek-V3's MLA prefill (D 192 = nope 128 + rope 64, Dv 128); (d)
+# the two padding cases in f32 and bf16: non-causal with Tk not a multiple
+# of any tile, and causal with Tq > Tk (rows past Tk see every key); (e) a
+# window that leaves rows with no key at all (i >= Tk + window - 1), which
+# every comparison leaves out and the kernel sets to 0.  (a) and (b) are
+# timed.
+FLASH_CASES = [
+    dict(name="(a) gemma2-2b global, train batch", B=2, Tq=1024, Tk=1024,
+         Hq=8, Hkv=4, D=256, Dv=256, causal=True, window=None, softcap=50.0,
+         dtype="bfloat16", grad=True),
+    dict(name="(b) gemma2-2b local, 8192 context", B=1, Tq=8192, Tk=8192,
+         Hq=8, Hkv=4, D=256, Dv=256, causal=True, window=4096, softcap=50.0,
+         dtype="bfloat16"),
+    dict(name="(c) DeepSeek-V3 MLA prefill", B=1, Tq=1024, Tk=1024, Hq=128,
+         Hkv=128, D=192, Dv=128, causal=True, window=None, softcap=None,
+         dtype="bfloat16"),
+    dict(name="(d) non-causal, ragged Tk", B=1, Tq=200, Tk=333, Hq=4, Hkv=2,
+         D=64, Dv=64, causal=False, window=None, softcap=None,
+         dtype="float32"),
+    dict(name="(d) causal, Tq > Tk", B=1, Tq=256, Tk=130, Hq=2, Hkv=1,
+         D=256, Dv=256, causal=True, window=None, softcap=None,
+         dtype="float32"),
+    dict(name="(d) non-causal, ragged Tk", B=1, Tq=200, Tk=333, Hq=4, Hkv=2,
+         D=64, Dv=64, causal=False, window=None, softcap=None,
+         dtype="bfloat16"),
+    dict(name="(d) causal, Tq > Tk", B=1, Tq=256, Tk=130, Hq=2, Hkv=1,
+         D=256, Dv=256, causal=True, window=None, softcap=None,
+         dtype="bfloat16"),
+    dict(name="(e) window, rows without keys", B=1, Tq=256, Tk=130, Hq=2,
+         Hkv=1, D=128, Dv=128, causal=True, window=64, softcap=30.0,
+         dtype="bfloat16")]
+# f32: the tests' tolerance, rtol and atol 2e-4 (the kernel sums the same
+# products in another order and normalises after the PV product).  bf16,
+# per output row (b, t, h) relative to its RMS as for B7: against ref.py in
+# f32 on the same values the kernel's only roundings are p and the output
+# (BF16_ROW_RTOL_F32); against ref.py in bf16, which also rounds each score
+# to bf16 (a score of ~50 moves by up to 0.125, 0.008 after the scale at
+# D 256), the sum of the two, as for B8.  Grads: the backward recomputes
+# through ref.py on both sides and the loss is linear in the output, so
+# they agree to the run-to-run order of the recompute's sums.
+FLASH_TOL = 2e-4
+FLASH_BF16_ROW_RTOL = 1e-1
+FLASH_GRAD_RTOL = 1e-2
+
+
+def _launch_once(torch, mod, count, fn):
+    """``fn()``, which must add one to ``mod.<count>``: the wrapper
+    launched its kernel once."""
+    before = getattr(mod, count)
+    out = fn()
+    torch.cuda.synchronize()
+    if getattr(mod, count) != before + 1:
+        raise AssertionError(f"{count} rose by {getattr(mod, count) - before}"
+                             ", not 1")
+    return out
+
+
+def _tree_rows(torch, N, D, g, dev):
+    """[N, D] f32 rows over many magnitudes, with special columns: all +0,
+    all -0, +Inf in the first row, -Inf in the last, all subnormal (also
+    in bf16)."""
+    x = torch.randn(N, D, generator=g, device=dev) * torch.exp(
+        2 * torch.randn(N, D, generator=g, device=dev))
+    specials = [(slice(None), 0.0), (slice(None), -0.0),
+                (0, float("inf")), (-1, -float("inf"))]
+    for c, (rows, value) in enumerate(specials[:D]):
+        x[rows, c] = value
+    if D > len(specials):
+        x[:, len(specials)] = torch.tensor(
+            [(-1) ** r * (r + 1) * 3e-39 for r in range(N)], device=dev)
+    return x
+
+
+def phase_tree_kernels(torch, tops, tref, dev):
+    """B3 and B4 against ref.py, bit for bit: B3 at every N in ``TREE_NS``
+    and D in ``TREE_DS``, f32 and bf16 rows into f32 and bf16; B4 at every
+    N and nb in ``INT8_TREE_NBS``.  Each call must add one to its launch
+    count.  Returns the largest |kernel - ref| over finite outputs of each
+    (0 when they are equal)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    worst = {"tree_reduce": 0.0, "int8_tree_reduce": 0.0}
+    for N in TREE_NS:
+        for D in TREE_DS:
+            x32 = _tree_rows(torch, N, D, g, dev)
+            for dt in (torch.float32, torch.bfloat16):
+                x = x32.to(dt)
+                for od in (torch.float32, torch.bfloat16):
+                    got = _launch_once(
+                        torch, tops, "TREE_SUM_LAUNCHES",
+                        lambda: tops.tree_reduce_kernel(x, od))
+                    want = tref.tree_reduce_ref(tref.pad_rows(x), od)
+                    err = _finite_err(torch, got.float(), want.float())
+                    worst["tree_reduce"] = max(worst["tree_reduce"], err)
+                    if not _same_bits(torch, got, want):
+                        raise AssertionError(
+                            f"B3 N={N} D={D} {str(dt)[6:]} -> {str(od)[6:]}"
+                            f" differs from ref.py (max finite |diff| "
+                            f"{err:.3e})")
+            print(f"  B3 N={N} D={D}: f32/bf16 -> f32/bf16 bit-identical to "
+                  f"ref.py (±0, ±Inf, subnormal columns)")
+        for nb in INT8_TREE_NBS:
+            x = torch.randn(N, nb * 128, generator=g, device=dev) * torch.exp(
+                2 * torch.randn(N, nb * 128, generator=g, device=dev))
+            wire = tops.encode_rows(x, "int8")
+            got = _launch_once(
+                torch, tops, "INT8_TREE_SUM_LAUNCHES",
+                lambda: tops.int8_tree_reduce_kernel(wire["q"],
+                                                     wire["scale"]))
+            want = tref.int8_tree_reduce_ref(tref.pad_rows(wire["q"]),
+                                             tref.pad_rows(wire["scale"]))
+            err = _finite_err(torch, got, want)
+            worst["int8_tree_reduce"] = max(worst["int8_tree_reduce"], err)
+            if not _same_bits(torch, got, want):
+                raise AssertionError(f"B4 N={N} nb={nb} differs from ref.py "
+                                     f"(max |diff| {err:.3e})")
+        print(f"  B4 N={N} nb={INT8_TREE_NBS}: bit-identical to ref.py")
+    return worst
+
+
+def phase_tree_timing(torch, tops, tref):
+    """B3 (f32 rows, and the bf16 wire of ``coded_tree_reduce`` into f32)
+    and B4 with their plain versions and library yardsticks at
+    ``TREE_TIME_N`` x ``TREE_TIME_D``: device ms per call from a CUDA graph
+    of 3 calls.  Returns the rows of the kernel table."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    N, D = TREE_TIME_N, TREE_TIME_D
+    x = torch.randn(N, D, generator=g, device=dev)
+    res = {}
+    xb = tops.encode_rows(x, "bf16")["x"]
+    wire = tops.encode_rows(x, "int8")
+    q, sc = wire["q"], wire["scale"]
+    del wire
+    runs = {
+        "f32": (dict(kernel=lambda i: tops.tree_reduce_kernel(x),
+                     plain=lambda i: tref.tree_reduce_ref(x),
+                     library=lambda i: torch.sum(x, 0)),
+                N * D * 4 + D * 4, "torch.sum(x, 0)"),
+        "bf16": (dict(kernel=lambda i: tops.tree_reduce_kernel(
+                          xb, torch.float32),
+                      plain=lambda i: tref.tree_reduce_ref(xb,
+                                                           torch.float32),
+                      library=lambda i: torch.sum(xb, 0,
+                                                  dtype=torch.float32)),
+                 N * D * 2 + D * 4, "torch.sum(x, 0, dtype=f32)"),
+        "int8": (dict(kernel=lambda i: tops.int8_tree_reduce_kernel(q, sc),
+                      plain=lambda i: tref.int8_tree_reduce_ref(q, sc)),
+                 N * D + N * (D // 128) * 4 + D * 4, None)}
+    for name, (fns, nbytes, lib) in runs.items():
+        r = _timed(torch, fns, 3, reps=3)
+        r.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        res[name] = r
+        label = "B4" if name == "int8" else "B3"
+        print(f"  {label} {name} rows N={N} D={D}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library "
+              + (f"{r['library_ms']:.4f} ms ({lib})" if lib else
+                 "none (no one call dequantises and sums)")
+              + f", bound {r['bound_ms']:.4f} ms ({nbytes} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s); device time per call from a "
+              f"CUDA graph of 3 calls")
+    # no one PyTorch call takes int8 codes and f32 scales; the nearest
+    # yardstick is two: dequantise, then sum
+    two = _time_ms(torch, lambda i: (q * sc).sum(0), 3, reps=3)["graph"]
+    res["int8"]["two_call_ms"] = two
+    print(f"  B4 two-call yardstick (q * scale).sum(0): {two:.4f} ms")
+    return res
+
+
+def phase_gemm_kernels(torch, gops, gref, dev, cases=None):
+    """B6 against ref.py in every ``GEMM_CASES`` case: f32 within
+    ``GEMM_F32_TOL``, bf16 per output row within ``GEMM_BF16_ROW_RTOL`` of
+    the row's RMS.  Returns the largest absolute and row-relative error."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    worst_abs = worst_rel = 0.0
+    for case in cases or GEMM_CASES:
+        dtype = getattr(torch, case["dtype"])
+        M, K, N = case["M"], case["K"], case["N"]
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        y = torch.randn(K, N, generator=g, device=dev).to(dtype)
+        got = _launch_once(torch, gops, "LAUNCHES",
+                           lambda: gops.gemm_kernel(x, y))
+        want = gref.gemm_ref(x, y)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = _row_rel_err(got, want)
+        line = (f"  B6 {case['dtype']:8s} {case['name']} [{M},{K}] @ "
+                f"[{K},{N}]: max|kernel-ref| = {err:.3e}, per row / RMS(ref "
+                f"row) = {rel:.3e}")
+        if dtype == torch.float32:
+            ok = bool(((got - want).abs() <= GEMM_F32_TOL
+                       + GEMM_F32_TOL * want.abs()).all())
+            line += f" (rtol = atol = {GEMM_F32_TOL:g})"
+        else:
+            ok = rel <= GEMM_BF16_ROW_RTOL
+            line += f" (row rtol {GEMM_BF16_ROW_RTOL:g})"
+        print(line)
+        if not ok or got.dtype != dtype or got.shape != (M, N):
+            raise AssertionError("gemm kernel disagrees with ref.py: "
+                                 + line.strip())
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def phase_gemm_timing(torch, gops, gref):
+    """B6, its plain version (f32 matmul, TF32 off) and ``torch.matmul`` in
+    bf16 at the first ``GEMM_CASES`` shape."""
+    dev = torch.device("cuda", 0)
+    case = GEMM_CASES[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    M, K, N = case["M"], case["K"], case["N"]
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    y = torch.randn(K, N, generator=g, device=dev).bfloat16()
+    r = _timed(torch, dict(kernel=lambda i: gops.gemm_kernel(x, y),
+                           plain=lambda i: gref.gemm_ref(x, y),
+                           library=lambda i: torch.matmul(x, y)), 3, reps=5)
+    flops, nbytes = 2 * M * N * K, (M * K + K * N + M * N) * 2
+    t_ops, t_bytes = (flops / BF16_FLOPS_PER_S * 1e3,
+                      nbytes / HBM_BYTES_PER_S * 1e3)
+    r.update(bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"  B6 bf16 [{M},{K}] @ [{K},{N}] ({case['name']}): kernel "
+          f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {flops} flop at "
+          f"{BF16_FLOPS_PER_S:.3g} flop/s; {nbytes} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s)")
+    return r
+
+
+def _flash_inputs(torch, case, g, dev, spare=0):
+    """q, k, v of ``case``; with ``spare`` > 0 (B == 1), k and v are the
+    first Tk rows of buffers whose ``spare`` rows past Tk hold NaN."""
+    dtype = getattr(torch, case["dtype"])
+    B, Tq, Tk = case["B"], case["Tq"], case["Tk"]
+    Hq, Hkv, D, Dv = case["Hq"], case["Hkv"], case["D"], case["Dv"]
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q = mk(B, Tq, Hq, D)
+    k, v = mk(B, Tk + spare, Hkv, D), mk(B, Tk + spare, Hkv, Dv)
+    k[:, Tk:] = float("nan")
+    v[:, Tk:] = float("nan")
+    return q, k[:, :Tk], v[:, :Tk]
+
+
+def _flash_kw(case):
+    return dict(causal=case["causal"], window=case["window"],
+                softcap=case["softcap"])
+
+
+def phase_flash_kernels(torch, fops, fref, dev, cases=None):
+    """B5 against ref.py in every ``FLASH_CASES`` case, on the rows that
+    see at least one key (rows that see none must come out 0): f32 within
+    ``FLASH_TOL``; bf16 per output row against ref.py in f32 and in bf16.
+    Keys past Tk hold NaN (B == 1), which must not move the output.  A case
+    with ``grad`` also runs the op's backward against the plain version's
+    autograd.  Returns the largest absolute and bf16 row-relative error
+    (against ref.py in f32)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    worst_abs = worst_rel = 0.0
+    for case in cases or FLASH_CASES:
+        dtype = getattr(torch, case["dtype"])
+        kw = _flash_kw(case)
+        q, k, v = _flash_inputs(torch, case, g, dev,
+                                spare=37 if case["B"] == 1 else 0)
+        seen = fref.attention_mask(case["Tq"], case["Tk"], causal=kw[
+            "causal"], window=kw["window"], device=dev).any(-1)
+        out = _launch_once(torch, fops, "LAUNCHES",
+                           lambda: fops.flash_attention_kernel(q, k, v, **kw))
+        want = fops.flash_attention_heads_ref(q, k, v, **kw)
+        err = (out.float() - want.float())[:, seen].abs().max().item()
+        shape = (f"B={case['B']} Tq={case['Tq']} Tk={case['Tk']} "
+                 f"Hq={case['Hq']} Hkv={case['Hkv']} D={case['D']} "
+                 f"Dv={case['Dv']} causal={kw['causal']} "
+                 f"window={kw['window']} softcap={kw['softcap']}")
+        line = (f"  B5 {case['dtype']:8s} {case['name']}: {shape}: "
+                f"max|kernel-ref| = {err:.3e}")
+        if dtype == torch.float32:
+            ok = bool(((out - want)[:, seen].abs() <= FLASH_TOL
+                       + FLASH_TOL * want[:, seen].abs()).all())
+            line += f" (rtol = atol = {FLASH_TOL:g})"
+            rel = 0.0
+        else:
+            want32 = fops.flash_attention_heads_ref(q.float(), k.float(),
+                                                    v.float(), **kw)
+            rel = _row_rel_err(out[:, seen], want32[:, seen])
+            rel16 = _row_rel_err(out[:, seen], want[:, seen])
+            ref16 = _row_rel_err(want[:, seen], want32[:, seen])
+            ok = rel <= BF16_ROW_RTOL_F32 and rel16 <= FLASH_BF16_ROW_RTOL
+            line += (f"; per row / RMS(ref row): vs ref.py in f32 {rel:.3e} "
+                     f"(rtol {BF16_ROW_RTOL_F32:g}), vs bf16 ref.py "
+                     f"{rel16:.3e} (rtol {FLASH_BF16_ROW_RTOL:g}; bf16 "
+                     f"ref.py vs f32 {ref16:.3e})")
+            del want32
+        blind = (~seen).sum().item()
+        if blind:
+            line += f"; {blind} rows see no key"
+            ok = ok and bool((out[:, ~seen] == 0).all())
+        print(line)
+        if not ok:
+            raise AssertionError("flash_attention kernel disagrees with "
+                                 "ref.py: " + line.strip())
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if case["B"] == 1:
+            clean = _launch_once(torch, fops, "LAUNCHES",
+                                 lambda: fops.flash_attention_kernel(
+                                     q, k.clone(), v.clone(), **kw))
+            if not _same_bits(torch, clean, out):
+                raise AssertionError("NaN past Tk reached the B5 kernel's "
+                                     "output: " + line.strip())
+        if case.get("grad"):
+            _flash_grad_check(torch, fops, case, q, k, v, g)
+        del out, want
+    print("  B5 NaN in K/V rows past Tk: output unchanged, bit for bit")
+    return worst_abs, worst_rel
+
+
+def _flash_grad_check(torch, fops, case, q, k, v, g):
+    """The op's backward (kernel forward, recompute through ref.py) against
+    autograd through the plain version, for a loss linear in the output."""
+    kw = _flash_kw(case)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = _launch_once(torch, fops, "LAUNCHES",
+                       lambda: fops.flash_attention(*leaves, **kw))
+    w = torch.randn(out.shape, generator=g, device=out.device)
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fops.flash_attention_heads_ref(*plain, **kw)
+    want = torch.autograd.grad((ref_out.float() * w).sum(), plain)
+    errs = []
+    for name, a, b in zip("qkv", got, want):
+        rms = b.float().pow(2).mean().sqrt().item()
+        e = (a.float() - b.float()).abs().max().item() / max(rms, 1e-30)
+        errs.append(f"d{name} {e:.3e}")
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                not e <= FLASH_GRAD_RTOL:
+            raise AssertionError(f"B5 backward {case['name']}: d{name} "
+                                 f"max|diff| / RMS = {e:.3e}")
+    print(f"  B5 {case['name']} backward vs the plain version's autograd: "
+          f"max|diff| / RMS(grad): {', '.join(errs)} (rtol "
+          f"{FLASH_GRAD_RTOL:g})")
+
+
+def phase_flash_timing(torch, fops, fref):
+    """B5, its plain version and ``F.scaled_dot_product_attention`` (GQA,
+    no softcap: SDPA has none; the window as a boolean mask) at cases (a)
+    and (b).  Returns the rows of the kernel table, (a) first."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    res = []
+    for case in FLASH_CASES[:2]:
+        kw = _flash_kw(case)
+        q, k, v = _flash_inputs(torch, case, g, dev)
+        Tq, Tk = case["Tq"], case["Tk"]
+        mask = fref.attention_mask(Tq, Tk, **{
+            n: kw[n] for n in ("causal", "window")}, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = None if kw["window"] is None and Tq == Tk else mask
+        heavy = Tq * Tk * case["B"] * case["Hq"] > 1 << 28
+        r = _timed(torch, dict(
+            kernel=lambda i: fops.flash_attention_kernel(q, k, v, **kw),
+            plain=lambda i: fops.flash_attention_heads_ref(q, k, v, **kw),
+            library=lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask,
+                is_causal=sdpa_mask is None and kw["causal"],
+                enable_gqa=True)), 1 if heavy else 3, reps=3)
+        pairs = int(mask.sum().item()) * case["B"] * case["Hq"]
+        flops = 2 * (case["D"] + case["Dv"]) * pairs
+        nbytes = (q.numel() + k.numel() + v.numel()
+                  + q.numel() // case["D"] * case["Dv"]) * q.element_size()
+        t_ops, t_bytes = (flops / BF16_FLOPS_PER_S * 1e3,
+                          nbytes / HBM_BYTES_PER_S * 1e3)
+        r.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 case=case["name"])
+        print(f"  B5 {case['name']}: kernel {r['ms']:.4f} ms "
+              f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+              f"(enable_gqa, NO softcap"
+              + (", window as a boolean mask" if sdpa_mask is not None
+                 else ", is_causal") + f"), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {flops} flop over {pairs} visible "
+              f"(query, key, head) triples at {BF16_FLOPS_PER_S:.3g} "
+              f"flop/s; {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s)")
+        res.append(r)
+        del q, k, v, qt, kt, vt
+    return res
+
+
+def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
+    """This slice's main path, the public ops a user calls, at the timed
+    shapes: ``tree_reduce`` and ``coded_tree_reduce`` (bf16, int8) over 8
+    rows of a 256 MB bucket, ``gemm`` at gemma2-2b's MLP up-projection,
+    ``flash_attention`` forward and backward at gemma2-2b's global layer.
+    The four launch counts are set to 0 just before and read just after;
+    each kernel must have run.  The three sums are held to their plain
+    versions on the same rows and wires bit for bit (and ``tree_reduce``
+    also to an f64 sum: f32 rounding, 8 adds of at most |x| each), the
+    rest to finite values of the right shape.  Returns the counts."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    N, D = TREE_TIME_N, TREE_TIME_D
+    x = torch.randn(N, D, generator=g, device=dev)
+    wires = {c: tops.encode_rows(x, c) for c in ("bf16", "int8")}
+    gc_ = GEMM_CASES[0]
+    a = torch.randn(gc_["M"], gc_["K"], generator=g, device=dev).bfloat16()
+    b = torch.randn(gc_["K"], gc_["N"], generator=g, device=dev).bfloat16()
+    fc = FLASH_CASES[0]
+    qkv = [t.requires_grad_() for t in _flash_inputs(torch, fc, g, dev)]
+    tops.TREE_SUM_LAUNCHES = tops.INT8_TREE_SUM_LAUNCHES = 0
+    gops.LAUNCHES = fops.LAUNCHES = 0
+    s = tops.tree_reduce(x)
+    coded = {c: tops.coded_tree_reduce(w, c) for c, w in wires.items()}
+    mm = gops.gemm(a, b)
+    o = fops.flash_attention(*qkv, **_flash_kw(fc))
+    grads = torch.autograd.grad(o.float().pow(2).mean(), qkv)
+    torch.cuda.synchronize()
+    counts = {"tree_reduce": tops.TREE_SUM_LAUNCHES,
+              "int8_tree_reduce": tops.INT8_TREE_SUM_LAUNCHES,
+              "gemm": gops.LAUNCHES, "flash_attention": fops.LAUNCHES}
+    want = {"tree_reduce": 2, "int8_tree_reduce": 1, "gemm": 1,
+            "flash_attention": 1}
+    if counts != want:
+        raise AssertionError(f"kernel launches on the ops path {counts}, "
+                             f"want {want}")
+    plain = {"tree_reduce": (s, tref.tree_reduce_ref(tref.pad_rows(x))),
+             "coded_tree_reduce bf16": (coded["bf16"], tref.tree_reduce_ref(
+                 tref.pad_rows(wires["bf16"]["x"]), torch.float32)),
+             "coded_tree_reduce int8": (coded["int8"],
+                                        tref.int8_tree_reduce_ref(
+                 tref.pad_rows(wires["int8"]["q"]),
+                 tref.pad_rows(wires["int8"]["scale"])))}
+    for name, (got, want) in plain.items():
+        if not _same_bits(torch, got, want):
+            raise AssertionError(f"{name} over {N} x {D} differs from "
+                                 f"ref.py (max |diff| "
+                                 f"{_finite_err(torch, got, want):.3e})")
+    del plain, wires
+    exact = x.double().sum(0)
+    slack = 8 * 2.0 ** -23 * x.double().abs().sum(0)
+    if not bool(((s.double() - exact).abs() <= slack).all()):
+        raise AssertionError("tree_reduce is off its f64 sum by more than "
+                             "f32 rounding")
+    for c, r in coded.items():
+        if r.dtype != torch.float32 or r.shape != (D,) or \
+                not torch.isfinite(r).all():
+            raise AssertionError(f"coded_tree_reduce {c}: bad output")
+    outs = [("gemm", mm, (gc_["M"], gc_["N"])),
+            ("flash_attention", o, (fc["B"], fc["Tq"], fc["Hq"], fc["Dv"]))]
+    outs += [(f"d{n}", t, tuple(w.shape)) for n, t, w in
+             zip("qkv", grads, qkv)]
+    for name, t, shape in outs:
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: shape {tuple(t.shape)} (want "
+                                 f"{shape}) or non-finite values")
+    err = {c: (r.double() - exact).abs().max().item()
+           for c, r in coded.items()}
+    print(f"  ops path: tree_reduce, coded_tree_reduce (bf16, int8) over "
+          f"{N} x {D} f32, gemm [{gc_['M']},{gc_['K']}] @ "
+          f"[{gc_['K']},{gc_['N']}], flash_attention {fc['name']} forward "
+          f"+ backward: launches {counts}; tree_reduce and coded bf16 / "
+          f"int8 bit-identical to ref.py; tree_reduce within f32 rounding "
+          f"of the f64 sum; coded bf16 / int8 off it by {err['bf16']:.3e} "
+          f"/ {err['int8']:.3e} (the wire codecs); all finite")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1079,8 +1617,17 @@ def _ptxas_summary(log: str):
             k = re.search(r"(decode_add_\w+?_kernel)ILb([01])E",
                           m.group(1))
             mla = re.search(r"(paged_mla_[a-z]+_kernel)", m.group(1))
+            ops_k = re.search(r"((?:int8_)?tree_pass_kernel|gemm_[a-z0-9]+"
+                              r"_kernel|flash_[a-z]+_kernel)(?:I(f|t)(f|t))?",
+                              m.group(1))
             if mla is not None:        # B8: f32 (simt) and bf16 (mma)
                 label = f" {mla.group(1)}"
+            elif ops_k is not None:    # B3-B6: <in->out,> template numbers
+                io = {"f": "f32", "t": "bf16"}
+                types = [f"{io[ops_k.group(2)]}->{io[ops_k.group(3)]}"] \
+                    if ops_k.group(2) else []
+                label = " {}<{}>".format(ops_k.group(1), ",".join(
+                    types + re.findall(r"L[ib](\d+)E", m.group(1))))
             elif t is not None:
                 label = "<{}>".format(",".join(
                     ["bf16" if t.group(1) != "f" else "f32"]
@@ -1112,6 +1659,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.gemm import ops as gops, ref as gref
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.kernels.tree_reduce import ops as tops, ref as tref
     from repro_torch.models.registry import get_config
@@ -1131,6 +1680,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     codecs = {"bf16": Bf16Codec(), "int8": Int8Codec()}
     print("[2] kernels vs plain versions", flush=True)
+    t0 = time.perf_counter()
+    tree_err = phase_tree_kernels(torch, tops, tref, dev)
+    tree_timing = phase_tree_timing(torch, tops, tref)
+    gemm_err, gemm_rel = phase_gemm_kernels(torch, gops, gref, dev)
+    gemm_timing = phase_gemm_timing(torch, gops, gref)
+    flash_err, flash_rel = phase_flash_kernels(torch, fops, fref, dev)
+    flash_timing = phase_flash_timing(torch, fops, fref)
+    ops_launches = phase_kernel_ops(torch, tops, tref, gops, fops, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  B3-B6 checks, timings and ops path: "
+          f"{time.perf_counter() - t0:.1f} s")
     max_err, max_rel = phase_kernels(torch, ops, ref, dev)
     timing = phase_timing(torch, ops, ref, get_config("gemma2-2b"))
     codec_err = phase_codec_kernels(torch, tops, tref, codecs, dev)
@@ -1190,6 +1751,34 @@ def main() -> int:
         replaces="src/repro/kernels/paged_attention/kernel.py:174",
         launches=mla_launches, max_abs_err=mla_err,
         max_row_rel_err=mla_rel, **mla_timing))
+    kernels.append(dict(
+        name="tree_reduce", route="cuda",
+        source="src/repro_torch/kernels/tree_reduce/csrc/tree_sum.cu",
+        replaces=f"{tr}:38", launches=ops_launches["tree_reduce"],
+        max_abs_err=tree_err["tree_reduce"],
+        shape=[TREE_TIME_N, TREE_TIME_D], **tree_timing["f32"],
+        bf16_rows={k: tree_timing["bf16"][k] for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms")}))
+    kernels.append(dict(
+        name="int8_tree_reduce", route="cuda",
+        source="src/repro_torch/kernels/tree_reduce/csrc/tree_sum.cu",
+        replaces=f"{tr}:85", launches=ops_launches["int8_tree_reduce"],
+        max_abs_err=tree_err["int8_tree_reduce"],
+        shape=[TREE_TIME_N, TREE_TIME_D // 128, 128], **tree_timing["int8"]))
+    kernels.append(dict(
+        name="gemm", route="cuda",
+        source="src/repro_torch/kernels/gemm/csrc/gemm.cu",
+        replaces="src/repro/kernels/gemm/kernel.py:37",
+        launches=ops_launches["gemm"], max_abs_err=gemm_err,
+        max_row_rel_err=gemm_rel, **gemm_timing))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:85",
+        launches=ops_launches["flash_attention"], max_abs_err=flash_err,
+        max_row_rel_err=flash_rel, **flash_timing[0],
+        local_8192=flash_timing[1]))
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
