@@ -14,18 +14,22 @@ The quickest proof that the port starts on the card.  Phases, in order
                 the tree sums (B3, B4) bit for bit at N 1/2/13/16 and
                 ragged widths, f32/bf16 in and out, with ±0, ±Inf and
                 subnormal columns; the GEMM (B6) at gemma2-2b's MLP
-                up-projection, a DeepSeek-V3 decode projection and a
-                ragged shape in f32 and bf16; flash attention (B5) at
-                gemma2-2b's global layer (with the autograd backward)
-                and local 8192-token layer, DeepSeek-V3's MLA prefill,
-                the two padding cases and a window whose last rows see
-                no key, NaN past Tk; each call must add one to its
-                launch count.  Then B3-B6 timed beside their plain
-                versions, library yardsticks (``torch.sum``,
-                ``torch.matmul``, SDPA without the softcap) and bounds,
-                and the ops path: the public ops driven once at those
-                shapes, their four counts set to 0 just before and read
-                just after.  Then paged attention (B7) in f32 and bf16
+                up-projection, a DeepSeek-V3 decode projection, a
+                ragged shape in f32 and bf16 and the wgmma kernel's tile
+                edges (each case on its kernel: wgmma, mma or f32);
+                flash attention (B5) at gemma2-2b's global layer (with
+                the autograd backward) and local 8192-token layer,
+                DeepSeek-V3's MLA prefill, the two padding cases, a
+                window whose last rows see no key and the wgmma
+                kernel's tile edges, NaN past Tk; each call must add one
+                to its launch count and to its kernel's count by path.
+                Then B3-B6 timed beside their plain versions, library
+                yardsticks (``torch.sum``, ``torch.matmul``, SDPA with
+                and without the softcap on B5's side) and bounds, B6
+                also at the decode projection on its wgmma and its mma
+                path, and the ops path: the public ops driven once at those
+                shapes, their four counts (and B5's and B6's counts by
+                path) set to 0 just before and read just after.  Then paged attention (B7) in f32 and bf16
                 (bf16 per output row, relative to the row's RMS), at
                 gemma2-2b's shape
                 (Hkv 4, G 2, d 256, bs 16) and three more shapes, ragged
@@ -769,15 +773,30 @@ TREE_TIME_N, TREE_TIME_D = 8, 67_108_864
 
 # B6 cases: gemma2-2b's MLP up-projection at a train rank's micro-batch
 # (2 x 1024 tokens), a DeepSeek-V3 expert up-projection at a decode step (8
-# rows), and a ragged shape in both dtypes (K and N not multiples of 8: the
-# kernel's element-wise load path).  The first is timed.
+# rows), a ragged shape in both dtypes (K and N not multiples of 8: the
+# mma kernel's element-wise load path), and the shapes the wgmma kernel's
+# 256 x 192 x 64 tiles make risky: M, N and K one past a tile multiple (N
+# and K by the 8 that path needs), K = 8 (one box, mostly zeros past K)
+# and K = 64 (one whole box), and the same M, K, N one past in steps of 1
+# and with x off 16 bytes, which go to the mma kernel.  ``path`` is the
+# kernel each case must launch (``ops.gemm_path``).  The first is timed.
 GEMM_CASES = [
     dict(name="gemma2-2b MLP up, train micro-batch", M=2048, K=2304,
-         N=9216, dtype="bfloat16"),
+         N=9216, dtype="bfloat16", path="wgmma"),
     dict(name="DeepSeek-V3 expert up, decode", M=8, K=7168, N=2048,
-         dtype="bfloat16"),
-    dict(name="ragged", M=1000, K=2300, N=770, dtype="float32"),
-    dict(name="ragged", M=1000, K=2300, N=770, dtype="bfloat16")]
+         dtype="bfloat16", path="wgmma"),
+    dict(name="ragged", M=1000, K=2300, N=770, dtype="float32", path="f32"),
+    dict(name="ragged", M=1000, K=2300, N=770, dtype="bfloat16",
+         path="mma"),
+    dict(name="tile edges + 1 (8 in N, K)", M=257, K=72, N=200,
+         dtype="bfloat16", path="wgmma"),
+    dict(name="K = 8", M=256, K=8, N=192, dtype="bfloat16", path="wgmma"),
+    dict(name="K = 64", M=256, K=64, N=384, dtype="bfloat16",
+         path="wgmma"),
+    dict(name="tile edges + 1", M=257, K=65, N=193, dtype="bfloat16",
+         path="mma"),
+    dict(name="x off 16 bytes", M=257, K=72, N=200, dtype="bfloat16",
+         path="mma", offset=1)]
 # f32: the kernel's fmaf chain and the plain version's f32 matmul sum the
 # same K products in another order (~1e-6 relative): the tests' 2e-4, as
 # rtol and atol.  bf16: both round an f32 sum of the same products to bf16,
@@ -794,8 +813,11 @@ GEMM_BF16_ROW_RTOL = 4e-2
 # the two padding cases in f32 and bf16: non-causal with Tk not a multiple
 # of any tile, and causal with Tq > Tk (rows past Tk see every key); (e) a
 # window that leaves rows with no key at all (i >= Tk + window - 1), which
-# every comparison leaves out and the kernel sets to 0.  (a) and (b) are
-# timed.
+# every comparison leaves out and the kernel sets to 0; (f) the shapes the
+# wgmma kernel's tiles make risky: Tq and Tk one past 128 (the q-block) and
+# one past the key tile kBK (128 at Dv <= 128 with D <= 192, else 64), with
+# Hq / Hkv = 1, 2 and 8.  (a) and (b) are timed, (a) also without the
+# softcap.
 FLASH_CASES = [
     dict(name="(a) gemma2-2b global, train batch", B=2, Tq=1024, Tk=1024,
          Hq=8, Hkv=4, D=256, Dv=256, causal=True, window=None, softcap=50.0,
@@ -820,6 +842,18 @@ FLASH_CASES = [
          dtype="bfloat16"),
     dict(name="(e) window, rows without keys", B=1, Tq=256, Tk=130, Hq=2,
          Hkv=1, D=128, Dv=128, causal=True, window=64, softcap=30.0,
+         dtype="bfloat16"),
+    dict(name="(f) T one past 128 = kBK, G 1", B=1, Tq=129, Tk=129, Hq=1,
+         Hkv=1, D=128, Dv=128, causal=True, window=None, softcap=None,
+         dtype="bfloat16"),
+    dict(name="(f) Tk one past kBK = 64, G 8", B=1, Tq=129, Tk=65, Hq=8,
+         Hkv=1, D=256, Dv=256, causal=True, window=None, softcap=50.0,
+         dtype="bfloat16"),
+    dict(name="(f) T one past 128 = kBK, G 2", B=2, Tq=129, Tk=129, Hq=4,
+         Hkv=2, D=64, Dv=64, causal=False, window=None, softcap=None,
+         dtype="bfloat16"),
+    dict(name="(f) T one past 64 = kBK, G 2, window", B=1, Tq=65, Tk=65,
+         Hq=2, Hkv=1, D=256, Dv=256, causal=True, window=32, softcap=None,
          dtype="bfloat16")]
 # f32: the tests' tolerance, rtol and atol 2e-4 (the kernel sums the same
 # products in another order and normalises after the PV product).  bf16,
@@ -835,15 +869,23 @@ FLASH_BF16_ROW_RTOL = 1e-1
 FLASH_GRAD_RTOL = 1e-2
 
 
-def _launch_once(torch, mod, count, fn):
+def _launch_once(torch, mod, count, fn, path=None):
     """``fn()``, which must add one to ``mod.<count>``: the wrapper
-    launched its kernel once."""
+    launched its kernel once; with ``path``, also one to
+    ``mod.PATH_LAUNCHES[path]`` and nothing to the other paths."""
     before = getattr(mod, count)
+    paths = dict(mod.PATH_LAUNCHES) if path else None
     out = fn()
     torch.cuda.synchronize()
     if getattr(mod, count) != before + 1:
         raise AssertionError(f"{count} rose by {getattr(mod, count) - before}"
                              ", not 1")
+    if path:
+        rose = {k: v - paths[k] for k, v in mod.PATH_LAUNCHES.items()
+                if v != paths[k]}
+        if rose != {path: 1}:
+            raise AssertionError(f"launches by path rose by {rose}, not by "
+                                 f"one on the {path} path")
     return out
 
 
@@ -963,23 +1005,26 @@ def phase_tree_timing(torch, tops, tref):
 def phase_gemm_kernels(torch, gops, gref, dev, cases=None):
     """B6 against ref.py in every ``GEMM_CASES`` case: f32 within
     ``GEMM_F32_TOL``, bf16 per output row within ``GEMM_BF16_ROW_RTOL`` of
-    the row's RMS.  Returns the largest absolute and row-relative error."""
+    the row's RMS; each call must launch one kernel, on the case's
+    ``path``.  Returns the largest absolute and row-relative error."""
     g = torch.Generator(device=dev)
     g.manual_seed(9)
     worst_abs = worst_rel = 0.0
     for case in cases or GEMM_CASES:
         dtype = getattr(torch, case["dtype"])
         M, K, N = case["M"], case["K"], case["N"]
-        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        off = case.get("offset", 0)       # x starts `off` elements in
+        x = torch.randn(M * K + off, generator=g, device=dev).to(dtype)
+        x = x[off:].view(M, K)
         y = torch.randn(K, N, generator=g, device=dev).to(dtype)
         got = _launch_once(torch, gops, "LAUNCHES",
-                           lambda: gops.gemm_kernel(x, y))
+                           lambda: gops.gemm_kernel(x, y), case["path"])
         want = gref.gemm_ref(x, y)
         err = (got.float() - want.float()).abs().max().item()
         rel = _row_rel_err(got, want)
         line = (f"  B6 {case['dtype']:8s} {case['name']} [{M},{K}] @ "
-                f"[{K},{N}]: max|kernel-ref| = {err:.3e}, per row / RMS(ref "
-                f"row) = {rel:.3e}")
+                f"[{K},{N}] ({case['path']}): max|kernel-ref| = {err:.3e}, "
+                f"per row / RMS(ref row) = {rel:.3e}")
         if dtype == torch.float32:
             ok = bool(((got - want).abs() <= GEMM_F32_TOL
                        + GEMM_F32_TOL * want.abs()).all())
@@ -995,9 +1040,49 @@ def phase_gemm_kernels(torch, gops, gref, dev, cases=None):
     return worst_abs, worst_rel
 
 
+def _gemm_bound(M, K, N):
+    """(bound ms, "operations" or "bytes", flop, bytes) of a bf16
+    [M, K] @ [K, N]."""
+    flops, nbytes = 2 * M * N * K, (M * K + K * N + M * N) * 2
+    t_ops, t_bytes = (flops / BF16_FLOPS_PER_S * 1e3,
+                      nbytes / HBM_BYTES_PER_S * 1e3)
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def gemm_decode_timing(torch, gops):
+    """B6 in bf16 at the decode case of ``GEMM_CASES`` (the second), as
+    ``gops.gemm_kernel`` takes it (aligned), and again with x one element
+    off 16 bytes, which sends it to the kernel for misaligned inputs (the
+    mma path), beside ``torch.matmul`` and the bound.  Only
+    ``gemm_kernel`` is called, so this times any B6 that has it."""
+    dev = torch.device("cuda", 0)
+    case = GEMM_CASES[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    M, K, N = case["M"], case["K"], case["N"]
+    x = torch.randn(M * K + 1, generator=g, device=dev).bfloat16()
+    xa, xo = x[:-1].view(M, K), x[1:].view(M, K)
+    y = torch.randn(K, N, generator=g, device=dev).bfloat16()
+    r = _timed(torch, dict(kernel=lambda i: gops.gemm_kernel(xa, y),
+                           plain=lambda i: gops.gemm_kernel(xo, y),
+                           library=lambda i: torch.matmul(xa, y)), 3, reps=5)
+    bound, by, flops, nbytes = _gemm_bound(M, K, N)
+    r = dict(ms=r["ms"], misaligned_ms=r["plain_ms"],
+             library_ms=r["library_ms"], bound_ms=bound, bound_by=by)
+    print(f"  B6 bf16 [{M},{K}] @ [{K},{N}] ({case['name']}): kernel "
+          f"{r['ms']:.4f} ms, with x off 16 bytes {r['misaligned_ms']:.4f} "
+          f"ms, torch.matmul {r['library_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; "
+          f"{flops} flop)")
+    return r
+
+
 def phase_gemm_timing(torch, gops, gref):
     """B6, its plain version (f32 matmul, TF32 off) and ``torch.matmul`` in
-    bf16 at the first ``GEMM_CASES`` shape."""
+    bf16 at the first ``GEMM_CASES`` shape; then ``gemm_decode_timing``
+    with the wgmma and the mma path at the decode shape, kept under
+    ``decode``."""
     dev = torch.device("cuda", 0)
     case = GEMM_CASES[0]
     g = torch.Generator(device=dev)
@@ -1008,17 +1093,21 @@ def phase_gemm_timing(torch, gops, gref):
     r = _timed(torch, dict(kernel=lambda i: gops.gemm_kernel(x, y),
                            plain=lambda i: gref.gemm_ref(x, y),
                            library=lambda i: torch.matmul(x, y)), 3, reps=5)
-    flops, nbytes = 2 * M * N * K, (M * K + K * N + M * N) * 2
-    t_ops, t_bytes = (flops / BF16_FLOPS_PER_S * 1e3,
-                      nbytes / HBM_BYTES_PER_S * 1e3)
-    r.update(bound_ms=max(t_ops, t_bytes),
-             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    bound, by, flops, nbytes = _gemm_bound(M, K, N)
+    r.update(bound_ms=bound, bound_by=by)
     print(f"  B6 bf16 [{M},{K}] @ [{K},{N}] ({case['name']}): kernel "
           f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
           f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {flops} flop at "
           f"{BF16_FLOPS_PER_S:.3g} flop/s; {nbytes} B at "
           f"{HBM_BYTES_PER_S:.3g} B/s)")
+    del x, y
+    paths = dict(gops.PATH_LAUNCHES)
+    r["decode"] = gemm_decode_timing(torch, gops)
+    rose = {k for k, v in gops.PATH_LAUNCHES.items() if v != paths[k]}
+    if rose != {"wgmma", "mma"}:
+        raise AssertionError(f"the decode timing ran on {sorted(rose)}, not "
+                             "on the wgmma and the mma path")
     return r
 
 
@@ -1059,16 +1148,18 @@ def phase_flash_kernels(torch, fops, fref, dev, cases=None):
                                 spare=37 if case["B"] == 1 else 0)
         seen = fref.attention_mask(case["Tq"], case["Tk"], causal=kw[
             "causal"], window=kw["window"], device=dev).any(-1)
+        path = "f32" if dtype == torch.float32 else "wgmma"
         out = _launch_once(torch, fops, "LAUNCHES",
-                           lambda: fops.flash_attention_kernel(q, k, v, **kw))
+                           lambda: fops.flash_attention_kernel(q, k, v, **kw),
+                           path)
         want = fops.flash_attention_heads_ref(q, k, v, **kw)
         err = (out.float() - want.float())[:, seen].abs().max().item()
         shape = (f"B={case['B']} Tq={case['Tq']} Tk={case['Tk']} "
                  f"Hq={case['Hq']} Hkv={case['Hkv']} D={case['D']} "
                  f"Dv={case['Dv']} causal={kw['causal']} "
                  f"window={kw['window']} softcap={kw['softcap']}")
-        line = (f"  B5 {case['dtype']:8s} {case['name']}: {shape}: "
-                f"max|kernel-ref| = {err:.3e}")
+        line = (f"  B5 {case['dtype']:8s} {case['name']}: {shape} "
+                f"({path}): max|kernel-ref| = {err:.3e}")
         if dtype == torch.float32:
             ok = bool(((out - want)[:, seen].abs() <= FLASH_TOL
                        + FLASH_TOL * want[:, seen].abs()).all())
@@ -1098,7 +1189,7 @@ def phase_flash_kernels(torch, fops, fref, dev, cases=None):
         if case["B"] == 1:
             clean = _launch_once(torch, fops, "LAUNCHES",
                                  lambda: fops.flash_attention_kernel(
-                                     q, k.clone(), v.clone(), **kw))
+                                     q, k.clone(), v.clone(), **kw), path)
             if not _same_bits(torch, clean, out):
                 raise AssertionError("NaN past Tk reached the B5 kernel's "
                                      "output: " + line.strip())
@@ -1137,14 +1228,17 @@ def _flash_grad_check(torch, fops, case, q, k, v, g):
 
 def phase_flash_timing(torch, fops, fref):
     """B5, its plain version and ``F.scaled_dot_product_attention`` (GQA,
-    no softcap: SDPA has none; the window as a boolean mask) at cases (a)
-    and (b).  Returns the rows of the kernel table, (a) first."""
+    no softcap: SDPA has none; the window as a boolean mask) at cases (a),
+    (a) without the softcap (the same work as SDPA's) and (b).  Returns the
+    rows of the kernel table in that order."""
     import torch.nn.functional as F
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev)
     g.manual_seed(12)
     res = []
-    for case in FLASH_CASES[:2]:
+    a, b = FLASH_CASES[:2]
+    for case in (a, dict(a, name=a["name"] + ", no softcap", softcap=None),
+                 b):
         kw = _flash_kw(case)
         q, k, v = _flash_inputs(torch, case, g, dev)
         Tq, Tk = case["Tq"], case["Tk"]
@@ -1172,7 +1266,8 @@ def phase_flash_timing(torch, fops, fref):
         print(f"  B5 {case['name']}: kernel {r['ms']:.4f} ms "
               f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
               f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
-              f"(enable_gqa, NO softcap"
+              f"(enable_gqa, "
+              + ("NO softcap" if kw["softcap"] else "like for like")
               + (", window as a boolean mask" if sdpa_mask is not None
                  else ", is_causal") + f"), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {flops} flop over {pairs} visible "
@@ -1192,7 +1287,9 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     each kernel must have run.  The three sums are held to their plain
     versions on the same rows and wires bit for bit (and ``tree_reduce``
     also to an f64 sum: f32 rounding, 8 adds of at most |x| each), the
-    rest to finite values of the right shape.  Returns the counts."""
+    rest to finite values of the right shape; the GEMM and the attention
+    must each have launched their wgmma kernel once.  Returns the counts
+    and the two ops' counts by path."""
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     N, D = TREE_TIME_N, TREE_TIME_D
@@ -1205,6 +1302,8 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     qkv = [t.requires_grad_() for t in _flash_inputs(torch, fc, g, dev)]
     tops.TREE_SUM_LAUNCHES = tops.INT8_TREE_SUM_LAUNCHES = 0
     gops.LAUNCHES = fops.LAUNCHES = 0
+    for mod in (gops, fops):
+        mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
     s = tops.tree_reduce(x)
     coded = {c: tops.coded_tree_reduce(w, c) for c, w in wires.items()}
     mm = gops.gemm(a, b)
@@ -1219,6 +1318,12 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     if counts != want:
         raise AssertionError(f"kernel launches on the ops path {counts}, "
                              f"want {want}")
+    paths = {"gemm": dict(gops.PATH_LAUNCHES),
+             "flash_attention": dict(fops.PATH_LAUNCHES)}
+    for name, by_path in paths.items():
+        if {k: v for k, v in by_path.items() if v} != {"wgmma": 1}:
+            raise AssertionError(f"{name} on the ops path launched "
+                                 f"{by_path}, not the wgmma kernel once")
     plain = {"tree_reduce": (s, tref.tree_reduce_ref(tref.pad_rows(x))),
              "coded_tree_reduce bf16": (coded["bf16"], tref.tree_reduce_ref(
                  tref.pad_rows(wires["bf16"]["x"]), torch.float32)),
@@ -1254,11 +1359,12 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     print(f"  ops path: tree_reduce, coded_tree_reduce (bf16, int8) over "
           f"{N} x {D} f32, gemm [{gc_['M']},{gc_['K']}] @ "
           f"[{gc_['K']},{gc_['N']}], flash_attention {fc['name']} forward "
-          f"+ backward: launches {counts}; tree_reduce and coded bf16 / "
-          f"int8 bit-identical to ref.py; tree_reduce within f32 rounding "
+          f"+ backward: launches {counts}, by path {paths}; tree_reduce "
+          f"and coded bf16 / int8 bit-identical to ref.py; tree_reduce "
+          f"within f32 rounding "
           f"of the f64 sum; coded bf16 / int8 off it by {err['bf16']:.3e} "
           f"/ {err['int8']:.3e} (the wire codecs); all finite")
-    return counts
+    return counts, paths
 
 
 # ---------------------------------------------------------------------------
@@ -1687,7 +1793,10 @@ def main() -> int:
     gemm_timing = phase_gemm_timing(torch, gops, gref)
     flash_err, flash_rel = phase_flash_kernels(torch, fops, fref, dev)
     flash_timing = phase_flash_timing(torch, fops, fref)
-    ops_launches = phase_kernel_ops(torch, tops, tref, gops, fops, dev)
+    print(f"  launches by path so far: B6 {gops.PATH_LAUNCHES}, B5 "
+          f"{fops.PATH_LAUNCHES}")
+    ops_launches, ops_paths = phase_kernel_ops(torch, tops, tref, gops, fops,
+                                               dev)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  B3-B6 checks, timings and ops path: "
@@ -1769,16 +1878,19 @@ def main() -> int:
         name="gemm", route="cuda",
         source="src/repro_torch/kernels/gemm/csrc/gemm.cu",
         replaces="src/repro/kernels/gemm/kernel.py:37",
-        launches=ops_launches["gemm"], max_abs_err=gemm_err,
-        max_row_rel_err=gemm_rel, **gemm_timing))
+        launches=ops_launches["gemm"], paths=ops_paths["gemm"],
+        max_abs_err=gemm_err, max_row_rel_err=gemm_rel, **gemm_timing))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:85",
-        launches=ops_launches["flash_attention"], max_abs_err=flash_err,
+        launches=ops_launches["flash_attention"],
+        paths=ops_paths["flash_attention"], max_abs_err=flash_err,
         max_row_rel_err=flash_rel, **flash_timing[0],
-        local_8192=flash_timing[1]))
+        no_softcap={k: flash_timing[1][k] for k in
+                    ("ms", "plain_ms", "library_ms", "bound_ms")},
+        local_8192=flash_timing[2]))
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

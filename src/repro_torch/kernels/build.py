@@ -5,10 +5,14 @@ is compiled on its own into ``build/kernels/lib<name>-<hash>.so`` at the
 repo root (``build/`` is generated and listed in ``.gitignore``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I kernels/common \
+         -o lib<name>-<hash>.so <name>.cu
 
-The hash covers the source, the headers beside it and the flags, so an
-edited source rebuilds at its next use and an unchanged one never does.
+``kernels/common/`` holds the headers every kernel may include
+(``hopper.cuh``: mbarriers, TMA, wgmma, setmaxnreg, tensor maps).  The
+hash covers the source, the headers beside it, the shared headers and the
+flags, so an edited source or header rebuilds at its next use and an
+unchanged one never does.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for all
 of them; the compiler's output (``-Xptxas -v``: registers, shared memory,
 spills) is kept beside each library as ``.log``.  No PyTorch headers are
@@ -30,9 +34,11 @@ from typing import Dict, Iterable, Optional
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+COMMON_DIR = KERNELS_DIR / "common"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(COMMON_DIR))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -45,7 +51,8 @@ def sources() -> Dict[str, Path]:
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for p in [src] + sorted(src.parent.glob("*.cuh")):
+    for p in ([src] + sorted(src.parent.glob("*.cuh"))
+              + sorted(COMMON_DIR.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -11,13 +11,14 @@
 // both).  Query row i sees key j when j < Tk, j <= i if causal (top-left
 // aligned, both counted from 0: not bottom-right), and i - j < window
 // when a window is given.  The score is (q . k) * scale in f32, then
-// softcap * tanhf(score / softcap) when a softcap is given.  m, l and acc
+// softcap * tanh(score / softcap) when a softcap is given.  m, l and acc
 // are f32; each probability is rounded to v's dtype before it weights V
 // (the Pallas kernel's p.astype(v.dtype)); l sums the unrounded f32
-// probabilities; the output is acc / max(l, 1e-30), rounded once.  A row
+// probabilities; the output is acc / max(l, 1e-30) (the bf16 kernel
+// multiplies by that divisor's IEEE reciprocal), rounded once.  A row
 // that sees no key at all gets l = 0 and so an output of 0.
 //
-// Keys at or past Tk are never loaded (cp.async zero-fills them) and are
+// Keys at or past Tk are never read (TMA fills them with zeros) and are
 // masked, so whatever lies past the end of K and V (NaN included) cannot
 // reach the output; the reference's op pads Tk with zero keys that can
 // enter the softmax (ROADMAP C2), which this kernel does not reproduce.
@@ -25,109 +26,78 @@
 // past Tk are skipped by the loop bounds.
 //
 // Two kernels, by dtype:
-//   * bf16: the tensor cores.  Grid (ceil(Tq / 128), Hq, B); 8 warps, each
-//     owning 16 query rows of the block's 128.  The Q tile [128, D] is
-//     loaded once into shared memory; K and V tiles of kBK keys ([kBK, D]
-//     and [kBK, Dv]) arrive by cp.async, double-buffered.  Per tile:
-//     S [16, kBK] = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate;
-//     K read by ldmatrix), the mask, the online softmax in registers (row
-//     maxima and sums across the 4 threads of a quad), P rounded to bf16
-//     straight into the A fragments of P V, then acc [16, Dv] += P V by
-//     mma.sync (V read by ldmatrix.trans).  D and Dv are multiples of 16
-//     up to 256.  The accumulator is a template size (64, 128 or 256
-//     columns); at 256 the tile is 32 keys so that acc (128 registers) and
-//     S fit beside each other without spilling, else 64.  Shared memory:
-//     2 (128 (D + 8) + 2 kBK (D + 8) + 2 kBK (Dv + 8)) bytes, over 48 KB
-//     from D = 64 up, so the launcher opts in (cudaFuncSetAttribute).
+//   * bf16: wgmma fed by TMA (after FlashAttention-3).  A block owns 128
+//     query rows of one head: two warpgroups of 64 rows each; grid (Hq,
+//     B, q-blocks), the q-blocks in reverse under a causal mask so that
+//     the longest blocks start first.  One thread loads the Q tile
+//     [128, D] once and the first K [kBK, D] and V [kBK, Dv] tiles into a
+//     2-stage ring, all by TMA over the [B, T, H, D] tensors read as 4-d
+//     (D, H, T, B) with boxes of (64, 1, rows, 1) and the 128-byte
+//     swizzle; boxes past D, Dv, Tq or Tk come back as zeros, so D and Dv
+//     are padded to 64 for free.  Per tile: S [64, kBK] = Q K^T by wgmma
+//     with both operands in shared memory (K is K-major as it lies; the
+//     loop over D's 64-column chunks is unrolled at compile time); the
+//     logits and the online softmax in registers (masks only on tiles
+//     that cross the diagonal, the window edge or Tk; ex2.approx with
+//     log2(e) folded into the scale; the softcap's tanh as
+//     1 - 2 / (e^2x + 1) through ex2.approx and a reciprocal, within
+//     ~1e-6 of tanhf; the accumulator rescaled only where a maximum
+//     moved); then acc [64, Dv] += P V by wgmma with P from registers
+//     (the f32 S accumulator's fragment is the bf16 A fragment, so P needs
+//     no shuffle) and V MN-major through the transpose flag.  The second
+//     warpgroup done with a stage refills it by TMA (a count in shared
+//     memory says which is second), so no warp is set aside to produce.
+//     With a producer warpgroup (384 threads, 168 registers a thread at
+//     launch) the width-256 instances spilled alike with setmaxnreg 240,
+//     232, 208 or none, and ptxas serialised their wgmma pipeline; with
+//     256 threads each has 255, nothing spills, and the kernel ran 1.4x
+//     faster.  The two warpgroups interleave on the
+//     tensor cores: one's softmax runs beside the other's products.  A
+//     warpgroup that sees no key of a tile only hands the stage back.
+//     The accumulator width is a template size (64, 128 or 256: Dv
+//     rounded up); the key tile is 64 at widths 256 and at 128 with
+//     D > 192 (shared memory), else 128.  D and Dv are multiples of 16
+//     up to 256; q, k, v and out start on 16 bytes (TMA).
 //   * f32: the CUDA cores, for the tests' f32 cases.  Grid
 //     (ceil(Tq / 32), Hq, B); 8 warps, 4 query rows each; tiles of 32 keys
 //     (one per lane) in shared memory; lane j scores key j, the warp
 //     shuffles p and accumulates columns lane, lane + 32, ... of Dv.  Any
-//     D and Dv up to 256.
+//     D and Dv up to 256.  IEEE expf and tanhf.
 //
 // Bound on this card: operations, at the shapes of the models.  Per
 // visible (query, key) pair and head, 2 D + 2 Dv flops: gemma2-2b's global
 // layer at B 2, T 1024, 8 heads, D 256, causal: 8.6 Gflop, 8.7 us at 989
 // TFLOP/s, while its 13 MB of q, k, v and out take 3.9 us at 3.35 TB/s.
-// mma.sync does not reach the wgmma peak, and this design keeps 8 warps,
-// a 2-stage ring and no warp specialisation; wgmma, TMA and splitting the
-// softmax from the products are the redesign's work.
+// There the grid is 128 blocks on 132 SMs and the last q-block (128 rows
+// by 1024 keys, 134 Mflop) sets the time: 18 us at one SM's share of the
+// peak.  Each score also costs MUFU operations at 16 a clock per SM: one
+// ex2, and with a softcap an ex2 and a rcp more.  At D = Dv = 256 with
+// the softcap that is 3 / 16 of a clock per (row, key), against
+// 1,024 flop / 4,096 a clock = 1 / 4 on the tensor cores: the two are
+// near each other, and only overlap hides one behind the other.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math: expf, tanhf and the final
-//        division stay IEEE).
+//        -Xcompiler -fPIC -I kernels/common (no --use_fast_math: the f32
+//        kernel's expf, tanhf and final division and the bf16 kernel's
+//        reciprocal of l stay IEEE; the bf16 kernel asks for ex2.approx
+//        and rcp.approx itself).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxD = 256;                // D and Dv, both kernels
-constexpr int kPad = 8;                   // bf16 per smem row, vs conflicts
+constexpr int kThreads = 256;             // the f32 kernel
+constexpr int kWarps = kThreads / 32;
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 128;                  // query rows per block
-constexpr int kWarps = 8;                 // 16 query rows each
-constexpr int kThreads = 32 * kWarps;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
-// when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// the keys [kv_begin, kv_end) any query row in [q0, q_end) may see
+// the keys [begin, end) any query row in [q0, q_end) may see
 struct KeyRange {
   int begin, end;
 };
@@ -151,191 +121,302 @@ __device__ __forceinline__ float logit(float s, float scale, float softcap) {
   return softcap > 0.f ? softcap * tanhf(x / softcap) : x;
 }
 
-inline size_t mma_smem_bytes(int D, int Dv, int bk) {
-  return sizeof(bf16) * ((size_t)kBQ * (D + kPad) +
-                         2 * (size_t)bk * (D + kPad) +
-                         2 * (size_t)bk * (Dv + kPad));
+// ---------------------------------------------------------------------------
+// bf16: wgmma, Q, K and V by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 128;                  // query rows per block
+constexpr int kWThreads = 256;            // 2 consumer WGs
+constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int kDv, int kBK>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
-                 int Tk, int Hq, int Hkv, int D, int Dv, float scale,
-                 int causal, int window, float softcap) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ds = D + kPad, vs = Dv + kPad;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);     // [kBQ, ds]
-  bf16* k_s = q_s + kBQ * ds;                        // 2 x [kBK, ds]
-  bf16* v_s = k_s + 2 * kBK * ds;                    // 2 x [kBK, vs]
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int64_t q_row = (int64_t)Hq * D, k_row = (int64_t)Hkv * D;
-  const int64_t v_row = (int64_t)Hkv * Dv, o_row = (int64_t)Hq * Dv;
-  const bf16* qb = q + ((int64_t)b * Tq * Hq + h) * D;
-  const bf16* kb = k + ((int64_t)b * Tk * Hkv + hk) * D;
-  const bf16* vb = v + ((int64_t)b * Tk * Hkv + hk) * Dv;
-  bf16* ob = out + ((int64_t)b * Tq * Hq + h) * Dv;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
 
+__host__ __device__ inline int d_chunks(int D) { return (D + 63) / 64; }
+
+constexpr int kStages = 2;                // K and V tiles in the ring
+
+// shared memory of one block: 1024 to align, Q [128, D], kStages stages of
+// K [bk, D] and V [bk, dvp] (64-column chunks), 1 + 2 kStages barriers and
+// kStages release counts
+inline size_t wgmma_smem_bytes(int D, int dvp, int bk) {
+  return 1024 +
+         (size_t)kRowBytes *
+             (kBQ * d_chunks(D) + kStages * bk * (d_chunks(D) + dvp / 64)) +
+         (1 + 2 * kStages) * sizeof(uint64_t) + kStages * sizeof(int);
+}
+
+// The logits of this tile in the log2 domain (x log2(e)), -inf where
+// masked.  kMask: the tile crosses the diagonal, the window edge or Tk.
+template <bool kMask, int kN>
+__device__ __forceinline__ void logits_log2(float (&s)[kN], int row_a,
+                                            int key0, int Tk, int causal,
+                                            int window, float qk_log2,
+                                            float cap_in, float cap_out) {
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    float y;
+    if (cap_out > 0.f) {                    // cap tanh(x / cap) log2(e)
+      const float big = ex2(s[e] * cap_in);  // e^(2 x / cap)
+      y = cap_out * fmaf(-2.f, rcp(big + 1.f), 1.f);
+    } else {
+      y = s[e] * qk_log2;
+    }
+    if (kMask) {
+      const int row = row_a + 8 * ((e >> 1) & 1);
+      const int key = key0 + (e >> 2) * 8 + (e & 1);
+      if (!visible(row, key, Tk, causal, window)) y = -INFINITY;
+    }
+    s[e] = y;
+  }
+}
+
+// The online softmax of one tile's scores `s` (this thread's share of
+// rows row_a and row_a + 8): the logits, the running maxima m and sums l,
+// s overwritten with the f32 probabilities, and the factors by which the
+// accumulator's rows must be rescaled.
+template <int kBK>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kBK / 2], float& m_a, float& m_b, float& l_a, float& l_b,
+    float& corr_a, float& corr_b, int row_a, int r_lo, int k0, int key0,
+    int Tk, int causal, int window, float qk_log2, float cap_in,
+    float cap_out) {
+  // the mask only where the tile crosses the diagonal, the window's edge
+  // or Tk for some row of this warpgroup
+  const bool edge = k0 + kBK > Tk || (causal && k0 + kBK - 1 > r_lo) ||
+                    (window > 0 && r_lo + 63 - k0 >= window);
+  if (edge)
+    logits_log2<true>(s, row_a, key0, Tk, causal, window, qk_log2, cap_in,
+                      cap_out);
+  else
+    logits_log2<false>(s, row_a, key0, Tk, causal, window, qk_log2, cap_in,
+                       cap_out);
+  // row maxima over the quad that shares a row
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < kBK / 2; ++e) {
+    if (e & 2) mx_b = fmaxf(mx_b, s[e]);
+    else mx_a = fmaxf(mx_a, s[e]);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+  // a row with nothing visible yet keeps m = -inf: subtract 0 instead
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+  const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+  corr_a = ex2(m_a - base_a);
+  corr_b = ex2(m_b - base_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  // p = 2^(y - m), unrounded into l
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int e = 0; e < kBK / 2; ++e) {
+    s[e] = ex2(s[e] - ((e & 2) ? base_b : base_a));
+    if (e & 2) sum_b += s[e];
+    else sum_a += s[e];
+  }
+  l_a = l_a * corr_a + sum_a;       // this thread's share; summed at the end
+  l_b = l_b * corr_b + sum_b;
+}
+
+// The probabilities rounded to bf16 into P's A fragments: the S
+// accumulator's n-tiles 2 k and 2 k + 1 make the k-th step of 16 keys.
+template <int kBK>
+__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2],
+                                       uint32_t (&p)[kBK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    p[j / 2][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);  // row g
+    p[j / 2][(j & 1) * 2 + 1] =
+        pack_bf16(s[4 * j + 2], s[4 * j + 3]);                  // row g + 8
+  }
+}
+
+template <int kDvp, int kBK, int kDc>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   bf16* __restrict__ out, int Tq, int Tk, int Hq, int Hkv,
+                   int Dv, float qk_log2, float cap_in, float cap_out,
+                   int causal, int window) {
+  using namespace hopper;
+  constexpr int dc = kDc;                 // 64-column chunks of D
+  constexpr int kVc = kDvp / 64;          // 64-column chunks of V
+  constexpr int kS = kBK / 2;             // S accumulator registers
+  constexpr int kA = kDvp / 2;            // output accumulator registers
+  constexpr int k_stage = dc * kBK * kRowBytes;
+  constexpr int v_stage = kVc * kBK * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s =                    // dc x [128, 64]
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = q_s + dc * kBQ * kRowBytes;  // kStages x dc x ...
+  unsigned char* v_s = k_s + kStages * k_stage;     // kStages x kVc x ...
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * v_stage);
+  uint64_t* k_full = q_full + 1;          // [kStages] each
+  uint64_t* v_full = k_full + kStages;
+  int* released = reinterpret_cast<int*>(v_full + kStages);  // [kStages]:
+                                          // warpgroups done with a stage
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qb * kBQ, hk = h / (Hq / Hkv);
   const KeyRange kr = key_range(q0, min(q0 + kBQ, Tq), Tk, causal, window);
   const int t_begin = kr.begin / kBK;
   const int t_end = kr.end > kr.begin ? (kr.end + kBK - 1) / kBK : t_begin;
-  const int dc = D / 8, vc = Dv / 8;                 // 16-byte chunks a row
-
-  for (int i = tid; i < kBQ * dc; i += kThreads) {   // the Q tile
-    const int r = i / dc, c = i - r * dc;
-    const bool ok = q0 + r < Tq;
-    cp_async16(q_s + r * ds + c * 8,
-               ok ? qb + (q0 + r) * q_row + c * 8 : qb, ok);
-  }
-  auto load_kv = [&](int tile, int st) {
-    const int k0 = tile * kBK;
-    bf16* kd = k_s + st * kBK * ds;
-    bf16* vd = v_s + st * kBK * vs;
-    for (int i = tid; i < kBK * dc; i += kThreads) {
-      const int r = i / dc, c = i - r * dc;
-      const bool ok = k0 + r < Tk;                   // else zero, not read
-      cp_async16(kd + r * ds + c * 8,
-                 ok ? kb + (k0 + r) * k_row + c * 8 : kb, ok);
-    }
-    for (int i = tid; i < kBK * vc; i += kThreads) {
-      const int r = i / vc, c = i - r * vc;
-      const bool ok = k0 + r < Tk;
-      cp_async16(vd + r * vs + c * 8,
-                 ok ? vb + (k0 + r) * v_row + c * 8 : vb, ok);
-    }
+  const int wg = threadIdx.x / 128;
+  // K and V of tile t into stage s, by TMA
+  auto load_tile = [&](int t, int s) {
+    mbar_arrive_expect_tx(&k_full[s], k_stage);
+#pragma unroll
+    for (int c = 0; c < dc; ++c)
+      tma_load_4d(k_s + s * k_stage + c * kBK * kRowBytes, &kmap, &k_full[s],
+                  c * 64, hk, t * kBK, b);
+    mbar_arrive_expect_tx(&v_full[s], v_stage);
+#pragma unroll
+    for (int c = 0; c < kVc; ++c)
+      tma_load_4d(v_s + s * v_stage + c * kBK * kRowBytes, &vmap, &v_full[s],
+                  c * 64, hk, t * kBK, b);
   };
 
-  constexpr int kNt = kBK / 8;                       // score n-tiles
-  constexpr int kVt = kDv / 8;                       // acc n-tiles
-  float acc[kVt][4];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);             // expect_tx by the issuer
+      mbar_init(&v_full[s], 1);
+      released[s] = 0;
+    }
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, dc * kBQ * kRowBytes);
 #pragma unroll
-  for (int n = 0; n < kVt; ++n)
+    for (int c = 0; c < dc; ++c)
+      tma_load_4d(q_s + c * kBQ * kRowBytes, &qmap, q_full, c * 64, h, q0, b);
+    for (int i = 0; i < kStages && t_begin + i < t_end; ++i)
+      load_tile(t_begin + i, i);
+  }
+  __syncthreads();
+
+  const int half = wg;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int r_lo = q0 + half * 64;        // this warpgroup's 64 rows
+  // this thread's rows: row_a (accumulator elements 4 n, 4 n + 1) and
+  // row_a + 8 (4 n + 2, 4 n + 3)
+  const int row_a = r_lo + warp * 16 + (lane >> 2);
+  const KeyRange wr = key_range(r_lo, min(r_lo + 64, Tq), Tk, causal, window);
+  float acc[kA];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  // this thread's rows: ra (accumulator elements 0, 1), rb (2, 3)
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  for (int i = 0; i < kA; ++i) acc[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  // ldmatrix lane offsets: A / V^T tiles (lrow, lcol), K tiles (krow, kcol)
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  const int krow = (lane & 7) + 8 * (lane >> 4), kcol = 8 * ((lane >> 3) & 1);
-  const int v16 = Dv / 16;
+  const uint64_t dq = desc_sw128(q_s + half * 64 * kRowBytes, 0, 1024);
 
-  if (t_begin < t_end) load_kv(t_begin, 0);
-  cp_async_commit();                                 // Q and the first tile
+  mbar_wait(q_full, 0);                   // also when no tile follows
+  int s = 0;
+  uint32_t phase = 0;
   for (int t = t_begin; t < t_end; ++t) {
-    const int st = (t - t_begin) & 1;
-    if (t + 1 < t_end) load_kv(t + 1, st ^ 1);       // freed by the barrier
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* kt = k_s + st * kBK * ds;
-    const bf16* vt = v_s + st * kBK * vs;
     const int k0 = t * kBK;
+    mbar_wait(&k_full[s], phase);
+    if (r_lo < Tq && k0 < wr.end && k0 + kBK > wr.begin) {
+      // S = Q K^T: 4 k-steps of 16 per 64-column chunk of D
+      float sc[kS];
+#pragma unroll
+      for (int e = 0; e < kS; ++e) sc[e] = 0.f;
+      const uint64_t dk = desc_sw128(k_s + s * k_stage, 0, 1024);
+      reg_fence(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < dc; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<kBK>::template ss<0>(
+              sc, dq + ((c * kBQ * kRowBytes + kk * 32) >> 4),
+              dk + ((c * kBK * kRowBytes + kk * 32) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
 
-    // S = Q K^T, this warp's 16 rows by the tile's kBK keys
-    float s[kNt][4];
+      float corr_a, corr_b;
+      softmax_tile<kBK>(sc, m_a, m_b, l_a, l_b, corr_a, corr_b, row_a, r_lo,
+                        k0, k0 + 2 * (lane & 3), Tk, causal, window,
+                        qk_log2, cap_in, cap_out);
+      uint32_t p[kBK / 16][4];
+      pack_p<kBK>(sc, p);
+      // rescale only where a maximum moved (rarely, after the first tiles)
+      if (!__all_sync(0xffffffffu, corr_a == 1.f && corr_b == 1.f)) {
 #pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_s + (warp * 16 + lrow) * ds + ks * 16 + lcol);
-#pragma unroll
-      for (int j2 = 0; j2 < kBK / 16; ++j2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kt + (j2 * 16 + krow) * ds + ks * 16 + kcol);
-        mma_bf16(s[2 * j2], a, bk[0], bk[1]);
-        mma_bf16(s[2 * j2 + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // logits, mask, row maxima (over the quad that shares a row)
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * tig + (e & 1);
-        const float x = visible(e < 2 ? ra : rb, key, Tk, causal, window)
-                            ? logit(s[j][e], scale, softcap)
-                            : -INFINITY;
-        s[j][e] = x;
-        if (e < 2) mx_a = fmaxf(mx_a, x);
-        else mx_b = fmaxf(mx_b, x);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    // a row with nothing visible yet keeps m = -inf: subtract 0 instead
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float corr_a = expf(m_a - base_a), corr_b = expf(m_b - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // p = exp(s - m): f32 into l, bf16 into P's A fragments
-    uint32_t p[kBK / 16][4];
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      const float p0 = expf(s[j][0] - base_a), p1 = expf(s[j][1] - base_a);
-      const float p2 = expf(s[j][2] - base_b), p3 = expf(s[j][3] - base_b);
-      sum_a += p0 + p1;
-      sum_b += p2 + p3;
-      p[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);      // row g
-      p[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
-    }
-    l_a = l_a * corr_a + sum_a;      // this thread's share; summed at the end
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < kVt; ++n) {
-      acc[n][0] *= corr_a;
-      acc[n][1] *= corr_a;
-      acc[n][2] *= corr_b;
-      acc[n][3] *= corr_b;
-    }
-
-    // acc += P V
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int c = 0; c < kDv / 16; ++c) {
-        if (c < v16) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vt + (kk * 16 + lrow) * vs + c * 16 + lcol);
-          mma_bf16(acc[2 * c], p[kk], bv[0], bv[1]);
-          mma_bf16(acc[2 * c + 1], p[kk], bv[2], bv[3]);
+        for (int n = 0; n < kA / 4; ++n) {
+          acc[4 * n] *= corr_a;
+          acc[4 * n + 1] *= corr_a;
+          acc[4 * n + 2] *= corr_b;
+          acc[4 * n + 3] *= corr_b;
         }
       }
-    __syncthreads();                 // stage st is free for tile t + 2
+
+      // acc += P V: V [kBK, Dv] is MN-major, k-steps of 16 rows
+      mbar_wait(&v_full[s], phase);
+      const uint64_t dv = desc_sw128(v_s + s * v_stage, kBK * kRowBytes,
+                                     1024);
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        Wgmma<kDvp>::template rs<1>(acc, p[kk],
+                                    dv + ((kk * 16 * kRowBytes) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+    } else {
+      mbar_wait(&v_full[s], phase);       // nothing to see: hand it back
+    }
+    // the second warpgroup done with stage s refills it with tile
+    // t + kStages (both warpgroups' products on it have completed)
+    if ((threadIdx.x & 127) == 0 && atomicAdd(&released[s], 1) == 1) {
+      atomicExch(&released[s], 0);
+      if (t + kStages < t_end) load_tile(t + kStages, s);
+    }
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
+    }
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  const int64_t o_row = (int64_t)Hq * Dv;
+  bf16* ob = out + ((int64_t)b * Tq * Hq + h) * Dv;
 #pragma unroll
-  for (int n = 0; n < kVt; ++n) {
-    const int col = n * 8 + 2 * tig;
+  for (int n = 0; n < kA / 4; ++n) {
+    const int col = n * 8 + 2 * (lane & 3);
     if (col >= Dv) continue;
-    if (ra < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + ra * o_row + col) =
-          __floats2bfloat162_rn(acc[n][0] / den_a, acc[n][1] / den_a);
-    if (rb < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + rb * o_row + col) =
-          __floats2bfloat162_rn(acc[n][2] / den_b, acc[n][3] / den_b);
+    if (row_a < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_a * o_row + col) =
+          __floats2bfloat162_rn(acc[4 * n] * inv_a, acc[4 * n + 1] * inv_a);
+    if (row_a + 8 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row_a + 8) * o_row + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * inv_b,
+                                acc[4 * n + 3] * inv_b);
   }
 }
 
@@ -456,10 +537,18 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-inline int mma_dv(int Dv) { return Dv <= 64 ? 64 : Dv <= 128 ? 128 : 256; }
-inline int mma_bk(int Dv) { return mma_dv(Dv) == 256 ? 32 : 64; }
+constexpr size_t kMaxSmem = 232448;       // a block's shared memory (H100)
 
-// whether a kernel takes (D, Dv): bf16 (dtype 1) by the mma's k-steps of
+// the bf16 kernel's accumulator width and key tile for (D, Dv): 64 keys
+// at width 256 and at width 128 with D > 192 (128 would not fit in
+// shared memory), else 128
+inline int wgmma_dvp(int Dv) { return Dv <= 64 ? 64 : Dv <= 128 ? 128 : 256; }
+inline int wgmma_bk(int D, int Dv) {
+  const int dvp = wgmma_dvp(Dv);
+  return dvp == 256 || (dvp == 128 && d_chunks(D) == 4) ? 64 : 128;
+}
+
+// whether a kernel takes (D, Dv): bf16 (dtype 1) by wgmma's k-steps of
 // 16, f32 (dtype 0) any size; both at most kMaxD
 inline bool supported(int D, int Dv, int dtype) {
   if (D <= 0 || Dv <= 0 || D > kMaxD || Dv > kMaxD) return false;
@@ -474,18 +563,71 @@ int set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int kDv, int kBK>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int Tq, int Tk, int Hq, int Hkv, int D, int Dv, float scale,
-               int causal, int window, float softcap, cudaStream_t st) {
-  const size_t smem = mma_smem_bytes(D, Dv, kBK);
-  if (int err = set_smem(flash_mma_kernel<kDv, kBK>, smem)) return err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
-  flash_mma_kernel<kDv, kBK><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, Hq, Hkv,
-      D, Dv, scale, causal, window, softcap);
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// a TMA map over [B, T, H, W] bf16 read as (W, H, T, B), boxes of
+// (64, 1, rows, 1)
+inline int bthw_map(CUtensorMap* map, const void* base, int B, int T, int H,
+                    int W, int rows) {
+  const cuuint64_t t = T > 1 ? T : 1;     // a map has no empty dimension
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, t,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2,
+                                 t * H * W * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hopper::make_map_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int kDvp, int kBK, int kDc>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Tq, int Tk, int Hq, int Hkv, int D, int Dv,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int err = bthw_map(&qm, q, B, Tq, Hq, D, kBQ)) return err;
+  if (int err = bthw_map(&km, k, B, Tk, Hkv, D, kBK)) return err;
+  if (int err = bthw_map(&vm, v, B, Tk, Hkv, Dv, kBK)) return err;
+  const size_t smem = wgmma_smem_bytes(D, kDvp, kBK);
+  if (int err = set_smem(flash_wgmma_kernel<kDvp, kBK, kDc>, smem))
+    return err;
+  const float log2e = 1.4426950408889634f;
+  const float cap_in = softcap > 0.f ? 2.f * scale * log2e / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap * log2e : 0.f;
+  const dim3 grid(Hq, B, (Tq + kBQ - 1) / kBQ);
+  flash_wgmma_kernel<kDvp, kBK, kDc><<<grid, kWThreads, smem, st>>>(
+      qm, km, vm, static_cast<bf16*>(out), Tq, Tk, Hq, Hkv, Dv,
+      scale * log2e, cap_in, cap_out, causal, window);
   return (int)cudaGetLastError();
+}
+
+// the instance for D's number of 64-column chunks: the S loop is unrolled
+// at compile time (with a loop bound known only at run time, ptxas spills
+// more at width 256 and the kernel ran 1.2-1.3x slower)
+template <int kDvp, int kBK>
+int launch_by_dc(const void* q, const void* k, const void* v, void* out,
+                 int B, int Tq, int Tk, int Hq, int Hkv, int D, int Dv,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t st) {
+  switch (d_chunks(D)) {
+    case 1:
+      return launch_wgmma<kDvp, kBK, 1>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D,
+                                        Dv, scale, causal, window, softcap,
+                                        st);
+    case 2:
+      return launch_wgmma<kDvp, kBK, 2>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D,
+                                        Dv, scale, causal, window, softcap,
+                                        st);
+    case 3:
+      return launch_wgmma<kDvp, kBK, 3>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D,
+                                        Dv, scale, causal, window, softcap,
+                                        st);
+    default:
+      return launch_wgmma<kDvp, kBK, 4>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D,
+                                        Dv, scale, causal, window, softcap,
+                                        st);
+  }
 }
 
 }  // namespace
@@ -496,34 +638,38 @@ extern "C" {
 // (D, Dv); dtype 0 = float32, 1 = bfloat16.
 size_t flash_attention_smem_bytes(int D, int Dv, int dtype) {
   if (!supported(D, Dv, dtype)) return 0;
-  return dtype == 1 ? mma_smem_bytes(D, Dv, mma_bk(Dv))
+  return dtype == 1 ? wgmma_smem_bytes(D, wgmma_dvp(Dv), wgmma_bk(D, Dv))
                     : simt_smem_bytes(D, Dv);
 }
 
 // out = attention(q, k, v) as in the header; window 0 = none, softcap 0 =
-// none, causal 0/1.  Launches on `stream`; returns cudaGetLastError()
-// after the launch (0 on success).
+// none, causal 0/1.  bf16 needs q, k, v and out on 16 bytes.  Launches on
+// `stream`; returns cudaGetLastError() after the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Tq, int Tk, int Hq, int Hkv,
                            int D, int Dv, float scale, int causal, int window,
                            float softcap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 0 || Tq < 0 || Tk < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
-      window < 0 || !supported(D, Dv, dtype) || B > 65535 || Hq > 65535)
+      window < 0 || !supported(D, Dv, dtype) || B > 65535 || Hq > 65535 ||
+      (Tq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return 0;
   if (dtype == 1) {
-    switch (mma_dv(Dv)) {
-      case 64:
-        return launch_mma<64, 64>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
-                                  scale, causal, window, softcap, st);
-      case 128:
-        return launch_mma<128, 64>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    const int dvp = wgmma_dvp(Dv), bk = wgmma_bk(D, Dv);
+    if (dvp == 64)
+      return launch_by_dc<64, 128>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
                                    scale, causal, window, softcap, st);
-      default:
-        return launch_mma<256, 32>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
-                                   scale, causal, window, softcap, st);
-    }
+    if (dvp == 128 && bk == 128)          // D <= 192
+      return launch_by_dc<128, 128>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
+                                    scale, causal, window, softcap, st);
+    if (dvp == 128)                       // D > 192: 4 chunks
+      return launch_wgmma<128, 64, 4>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D,
+                                      Dv, scale, causal, window, softcap, st);
+    return launch_by_dc<256, 64>(q, k, v, out, B, Tq, Tk, Hq, Hkv, D, Dv,
+                                 scale, causal, window, softcap, st);
   }
   const size_t smem = simt_smem_bytes(D, Dv);
   if (int err = set_smem(flash_simt_kernel, smem)) return err;

@@ -10,10 +10,13 @@ tile shape belongs to the kernel.
 
   * CPU tensors  → ``ref.flash_attention_ref`` over heads flattened into
     [B * Hq, T, D] (K and V repeated per query head);
-  * CUDA tensors → the hand-written kernel ``csrc/flash_attention.cu``
-    through ``flash_attention_kernel``, which reads the [B, T, H, D]
-    layout as it is, or an error (also for a dtype or head size the
-    kernel does not take).  Nothing falls back.
+  * CUDA tensors → the hand-written kernels of
+    ``csrc/flash_attention.cu`` through ``flash_attention_kernel``, which
+    read the [B, T, H, D] layout as it is: bf16 by the wgmma kernel fed
+    by TMA ("wgmma", which needs q, k and v to start on 16 bytes), f32 on
+    the CUDA cores ("f32").  Anything the kernels do not
+    take (a dtype, a head size, a pointer off 16 bytes) raises.  Nothing
+    falls back.
 
 The port keeps ``flash_attention_ref``'s semantics everywhere: keys past
 Tk never enter the softmax, for non-causal ragged Tk and for causal
@@ -26,8 +29,9 @@ leave such rows out.
 The backward is a ``torch.autograd.Function`` whose backward recomputes
 the forward through ``flash_attention_ref`` under ``torch.enable_grad()``
 and differentiates that: the reference's ``custom_vjp``, which has no
-backward kernel either.  ``LAUNCHES`` counts the forward kernel's launches
-(the wrapper adds one per launch and nowhere else).
+backward kernel either.  ``LAUNCHES`` counts the forward kernels' launches
+and ``PATH_LAUNCHES`` the same launches by kernel (the wrapper adds to
+both per launch and nowhere else).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.kernels import build
 from .ref import flash_attention_ref
 
 LAUNCHES = 0
+PATH_LAUNCHES = {"wgmma": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory a block may use (H100)
@@ -74,13 +79,22 @@ def _check_shapes(q, k, v):
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
 
 
+def check_aligned(*tensors) -> None:
+    """Raise ``ValueError`` unless every tensor starts on 16 bytes: the bf16
+    kernel reads q, k and v by TMA, whose base addresses must be."""
+    for name, t in zip("qkv", tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not on 16 "
+                             "bytes (TMA); pass a contiguous copy")
+
+
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
                            softcap=None) -> torch.Tensor:
     """Launch B5 (forward): q [B,Tq,Hq,D], k [B,Tk,Hkv,D], v [B,Tk,Hkv,Dv],
     one dtype (float32 or bfloat16), contiguous on one CUDA device →
     [B,Tq,Hq,Dv] in q's dtype, on the current stream, the scores scaled by
-    1/sqrt(D).  bf16 takes D and Dv in multiples of 16 up to 256, f32 any
-    up to 256; anything else raises."""
+    1/sqrt(D).  bf16 takes D and Dv in multiples of 16 up to 256 and q, k,
+    v on 16 bytes; f32 any D and Dv up to 256; anything else raises."""
     global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel needs CUDA tensors, got q "
@@ -96,6 +110,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     _check_shapes(q, k, v)
+    path = "wgmma" if q.dtype == torch.bfloat16 else "f32"
+    if path == "wgmma":
+        check_aligned(q, k, v)
     B, Tq, Hq, D = q.shape
     Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     lib = _lib()
@@ -111,8 +128,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if max(B, Hq) > 65535 or max(Tq, Tk) * max(Hq, Hkv) * max(D, Dv) \
-            >= 2 ** 31:
+    if max(B, Hq, -(-Tq // 128)) > 65535 or \
+            max(Tq, Tk) * max(Hq, Hkv) * max(D, Dv) >= 2 ** 31:
         raise ValueError(f"shape too large for the kernel: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     scale = 1.0 / math.sqrt(D)
@@ -125,9 +142,10 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap), code, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"flash_attention kernel launch failed ({path} "
+                           f"path, cudaError {err})")
     LAUNCHES += 1
+    PATH_LAUNCHES[path] += 1
     return out
 
 
@@ -179,5 +197,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return _FlashAttention.apply(q, k, v, causal, window, softcap)
 
 
-__all__ = ["flash_attention", "flash_attention_kernel",
+__all__ = ["check_aligned", "flash_attention", "flash_attention_kernel",
            "flash_attention_heads_ref", "flash_attention_ref"]

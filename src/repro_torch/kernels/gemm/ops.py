@@ -7,12 +7,18 @@ and N.  The reference's ``block_m``/``block_n``/``block_k`` and
 and there is no padding to ask for (the kernel masks its ragged edges).
 
   * CPU tensors  → ``ref.gemm_ref``;
-  * CUDA tensors → the hand-written kernel ``csrc/gemm.cu`` through
-    ``gemm_kernel`` (bf16 on the tensor cores, f32 on the CUDA cores
-    without TF32), or an error.  Nothing falls back.
+  * CUDA tensors → the hand-written kernels of ``csrc/gemm.cu`` through
+    ``gemm_kernel``, or an error.  Nothing falls back.
 
-``LAUNCHES`` counts the kernel's launches (the wrapper adds one per launch
-and nowhere else).
+``gemm_path`` picks the kernel from the dtype, the shape and the pointers,
+before the launch: "wgmma" (bf16, K and N multiples of 8, x and y
+16-byte aligned: the warp-specialised wgmma kernel fed by TMA), "mma"
+(any other bf16 shape: mma.sync) or "f32" (the CUDA cores, no TF32).
+The C launcher runs the kernel it is named and refuses one that does not
+take the call.
+
+``LAUNCHES`` counts the kernels' launches and ``PATH_LAUNCHES`` the same
+launches by path (the wrapper adds to both per launch and nowhere else).
 """
 
 from __future__ import annotations
@@ -27,17 +33,33 @@ from repro_torch.kernels import build
 from .ref import gemm_ref
 
 LAUNCHES = 0
+PATH_LAUNCHES = {"wgmma": 0, "mma": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODE = {"f32": 0, "mma": 1, "wgmma": 2}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("gemm")
-    lib.gemm_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    lib.gemm_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                                 + [ctypes.c_void_p])
     lib.gemm_launch.restype = ctypes.c_int
     return lib
+
+
+def gemm_path(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The kernel that ``gemm_kernel`` launches for x [M, K] @ y [K, N]:
+    "f32" for float32; for bfloat16 "wgmma" when K > 0, K and N are
+    multiples of 8 and x and y start on 16 bytes (TMA's strides and base),
+    else "mma".  The output is a fresh allocation, always aligned."""
+    if x.dtype == torch.float32:
+        return "f32"
+    K, N = x.shape[1], y.shape[1]
+    if K > 0 and K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and y.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "mma"
 
 
 def gemm_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -64,13 +86,17 @@ def gemm_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    path = gemm_path(x, y)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().gemm_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                 M, N, K, _DTYPE_CODE[x.dtype], stream)
+                                 M, N, K, _DTYPE_CODE[x.dtype],
+                                 _PATH_CODE[path], stream)
     if err != 0:
-        raise RuntimeError(f"gemm kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"gemm kernel launch failed ({path} path, "
+                           f"cudaError {err})")
     LAUNCHES += 1
+    PATH_LAUNCHES[path] += 1
     return out
 
 
@@ -82,4 +108,4 @@ def gemm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return gemm_kernel(x.contiguous(), y.contiguous())
 
 
-__all__ = ["gemm", "gemm_kernel", "gemm_ref"]
+__all__ = ["gemm", "gemm_kernel", "gemm_path", "gemm_ref"]

@@ -178,6 +178,21 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ops.flash_attention_kernel(q, q, q)
 
 
+@pytest.mark.parametrize("name,off", [("q", 1), ("k", 4), ("v", 7)])
+def test_bf16_kernel_needs_16_byte_aligned_tensors(name, off):
+    """The bf16 kernel reads q, k and v by TMA: the wrapper raises on a
+    tensor that starts off 16 bytes and launches nothing (no other
+    kernel takes over)."""
+    shape = (1, 4, 2, 16)
+    ts = {n: torch.zeros(shape, dtype=torch.bfloat16) for n in "qkv"}
+    ts[name] = torch.zeros(128 + off, dtype=torch.bfloat16)[off:].view(shape)
+    assert ts[name].is_contiguous() and ts[name].data_ptr() % 16
+    with pytest.raises(ValueError, match=f"{name} starts at .* not on 16"):
+        ops.check_aligned(ts["q"], ts["k"], ts["v"])
+    ops.check_aligned(*(torch.zeros(shape, dtype=torch.bfloat16)
+                        for _ in "qkv"))
+
+
 def test_shapes_are_checked():
     q = torch.zeros(1, 4, 3, 16)
     with pytest.raises(ValueError, match="multiple"):
@@ -185,8 +200,18 @@ def test_shapes_are_checked():
                             torch.zeros(1, 4, 2, 16))
 
 
+# the wgmma kernel's tile edges: Tq and Tk one past 128 and one past its
+# key tile (128 at D <= 128, 64 at D 256), Hq / Hkv = 1, 2 and 8
+EDGE_CASES = [
+    (1, 129, 129, 1, 1, 128, True, None, None),
+    (1, 129, 65, 8, 1, 256, True, None, 50.0),
+    (2, 129, 129, 4, 2, 64, False, None, None),
+    (1, 65, 65, 2, 1, 256, True, 32, None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("case", ATTN_CASES + EDGE_CASES, ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_ref(case, dtype):
     """On the card: one launch per call, within the tolerances above of
@@ -198,10 +223,15 @@ def test_cuda_kernel_matches_ref(case, dtype):
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).cuda() for a in
                _inputs(B, Tq, Tk, Hq, Hkv, D, Tq + Hq))
     kw = dict(causal=causal, window=window, softcap=cap)
-    before = ops.LAUNCHES
+    path = "wgmma" if dtype == "bfloat16" else "f32"
+    before, by_path = ops.LAUNCHES, ops.PATH_LAUNCHES[path]
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
+    assert ops.PATH_LAUNCHES[path] == by_path + 1
     want = ops.flash_attention_heads_ref(q, k, v, **kw)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **TOL[dtype])
+    seen = ref.attention_mask(Tq, Tk, causal=causal, window=window,
+                              device=q.device).any(-1)
+    np.testing.assert_allclose(got[:, seen].float().cpu().numpy(),
+                               want[:, seen].float().cpu().numpy(),
+                               **TOL[dtype])

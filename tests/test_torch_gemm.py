@@ -74,9 +74,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ops.gemm_kernel(torch.zeros(4, 8), torch.zeros(8, 2))
 
 
+def _offset(rows, cols, off, dtype=torch.bfloat16):
+    """A contiguous [rows, cols] matrix that starts ``off`` elements into
+    its buffer (off 16 bytes for any off that is not a multiple of 8)."""
+    return torch.zeros(rows * cols + off, dtype=dtype)[off:].view(rows, cols)
+
+
+@pytest.mark.parametrize("m,k,n,x_off,y_off,dtype,path", [
+    (2048, 2304, 9216, 0, 0, torch.bfloat16, "wgmma"),   # the timed shape
+    (8, 7168, 2048, 0, 0, torch.bfloat16, "wgmma"),      # decode rows
+    (257, 72, 200, 0, 0, torch.bfloat16, "wgmma"),       # tile edges + 8
+    (256, 8, 192, 0, 0, torch.bfloat16, "wgmma"),        # K = 8
+    (1000, 2300, 776, 0, 0, torch.bfloat16, "mma"),      # K % 8 != 0
+    (1000, 2304, 770, 0, 0, torch.bfloat16, "mma"),      # N % 8 != 0
+    (257, 72, 200, 1, 0, torch.bfloat16, "mma"),         # x off 16 bytes
+    (257, 72, 200, 0, 4, torch.bfloat16, "mma"),         # y off 16 bytes
+    (257, 72, 200, 8, 8, torch.bfloat16, "wgmma"),       # 16 bytes in
+    (8, 0, 8, 0, 0, torch.bfloat16, "mma"),              # K = 0
+    (2048, 2304, 9216, 0, 0, torch.float32, "f32")])
+def test_gemm_path_by_dtype_shape_and_pointers(m, k, n, x_off, y_off, dtype,
+                                               path):
+    """The kernel the wrapper launches, decided before the launch: wgmma
+    only where TMA can read x and y (K and N multiples of 8, both on 16
+    bytes)."""
+    x, y = _offset(m, k, x_off, dtype), _offset(k, n, y_off, dtype)
+    assert x.is_contiguous() and y.is_contiguous()
+    assert ops.gemm_path(x, y) == path
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + [(1000, 2300, 770),
-                                                  (8, 7168, 2048)])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + [
+    (1000, 2300, 770), (8, 7168, 2048), (257, 72, 200), (256, 8, 192),
+    (256, 64, 384), (257, 65, 193)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_gemm_matches_ref(m, k, n, dtype):
     """On the card: one launch per call, within the tolerances above of
@@ -88,10 +117,12 @@ def test_cuda_gemm_matches_ref(m, k, n, dtype):
     x, y = _inputs(m, k, n, m + k + n)
     xt = torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
     yt = torch.from_numpy(y).to(getattr(torch, dtype)).cuda()
-    before = ops.LAUNCHES
+    before, path = ops.LAUNCHES, ops.gemm_path(xt, yt)
+    by_path = ops.PATH_LAUNCHES[path]
     got = ops.gemm(xt, yt)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
+    assert ops.PATH_LAUNCHES[path] == by_path + 1
     want = ref.gemm_ref(xt, yt)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])

@@ -6,8 +6,10 @@ their calls as the kernel wrappers count launches:
 
   * B3/B4: the plain versions themselves (``phase_tree_kernels`` must find
     them bit-identical), and a sum in linear order, which it must reject;
-  * B6: the plain version (passes, at the full widths with gemma's rows cut
-    to 64), and one that drops a K tile of 32, which the bf16 row check
+  * B6: the plain version behind ``ops.gemm_path`` (passes, at the full
+    widths with gemma's rows cut to 64; every case on its path), one that
+    drops a K tile of 32, which the bf16 row check must reject, and one
+    that sends the timed shape to the mma kernel, which the path check
     must reject;
   * B5: an emulation of the kernel's arithmetic (f32 scores over the
     visible keys only, each probability rounded to v's dtype before it
@@ -33,7 +35,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fops, ref as fref
-from repro_torch.kernels.gemm import ref as gref
+from repro_torch.kernels.gemm import ops as gops, ref as gref
 from repro_torch.kernels.tree_reduce import ops as tops, ref as tref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,9 +105,20 @@ def _gemm_cases(smoke):
     return [first] + smoke.GEMM_CASES[1:]
 
 
-def _gemm_stand_in(fn):
-    ns = types.SimpleNamespace(LAUNCHES=0)
-    ns.gemm_kernel = _counting(ns, "LAUNCHES", fn)
+def _counting_paths(ns, path_of, fn):
+    """``fn`` counted in ``ns.LAUNCHES`` and in ``ns.PATH_LAUNCHES`` under
+    ``path_of(*args)``, as the wrappers count."""
+    def wrapped(*args, **kw):
+        ns.LAUNCHES += 1
+        ns.PATH_LAUNCHES[path_of(*args)] += 1
+        return fn(*args, **kw)
+    return wrapped
+
+
+def _gemm_stand_in(fn, path_of=gops.gemm_path):
+    ns = types.SimpleNamespace(LAUNCHES=0, PATH_LAUNCHES=dict.fromkeys(
+        gops.PATH_LAUNCHES, 0))
+    ns.gemm_kernel = _counting_paths(ns, path_of, fn)
     return ns
 
 
@@ -115,7 +128,23 @@ def test_gemm_check_passes_the_plain_version(smoke, no_sync, capsys):
                                         cases=_gemm_cases(smoke))
     assert err == 0.0 and rel == 0.0
     assert stand_in.LAUNCHES == len(smoke.GEMM_CASES)
+    want = {p: sum(c["path"] == p for c in smoke.GEMM_CASES)
+            for p in gops.PATH_LAUNCHES}
+    assert stand_in.PATH_LAUNCHES == want and want["mma"] >= 2
     print(capsys.readouterr().out)
+
+
+def test_gemm_check_rejects_the_timed_shape_on_the_mma_path(smoke, no_sync):
+    """A GEMM whose aligned shapes still go to the mma.sync kernel: right
+    numbers, wrong kernel."""
+    def no_wgmma(x, y):
+        path = gops.gemm_path(x, y)
+        return "mma" if path == "wgmma" else path
+
+    with pytest.raises(AssertionError, match="not by one on the wgmma path"):
+        smoke.phase_gemm_kernels(torch, _gemm_stand_in(gref.gemm_ref,
+                                                       no_wgmma),
+                                 gref, CPU, cases=_gemm_cases(smoke))
 
 
 def test_gemm_check_rejects_a_dropped_k_tile(smoke, no_sync):
@@ -129,10 +158,13 @@ def test_gemm_check_rejects_a_dropped_k_tile(smoke, no_sync):
                                  cases=_gemm_cases(smoke))
 
 
-def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None):
+def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None,
+                   block=None):
     """The kernel's arithmetic on [B, T, H, D]; with ``pad_to``, K and V
     are padded with zero rows to a multiple of it and nothing masks them
-    (the reference op's padding)."""
+    (the reference op's padding); with ``block``, each row sees every key
+    in its ``block``-row block's key range (the loop bounds without the
+    mask on the tiles that cross the diagonal or the window's edge)."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     if pad_to:
@@ -146,6 +178,14 @@ def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None):
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     seen = fref.attention_mask(Tq, k.shape[1], causal=causal, window=window)
+    if block:
+        first = torch.arange(Tq)[:, None] // block * block
+        key = torch.arange(k.shape[1])[None, :]
+        seen = torch.ones_like(seen)
+        if causal:
+            seen &= key < first + block
+        if window is not None:
+            seen &= key > first - window
     if not pad_to:
         seen &= torch.arange(k.shape[1])[None, :] < Tk
     s = torch.where(seen, s, -math.inf)
@@ -157,11 +197,17 @@ def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None):
     return (o / den).to(q.dtype)
 
 
+def _flash_path(q, *args):
+    return "f32" if q.dtype == torch.float32 else "wgmma"
+
+
 def _flash_stand_in(fn):
     ns = types.SimpleNamespace(
-        LAUNCHES=0, flash_attention_heads_ref=fops.flash_attention_heads_ref)
-    ns.flash_attention_kernel = _counting(ns, "LAUNCHES", fn)
-    ns.flash_attention = _counting(ns, "LAUNCHES", fops.flash_attention)
+        LAUNCHES=0, PATH_LAUNCHES=dict.fromkeys(fops.PATH_LAUNCHES, 0),
+        flash_attention_heads_ref=fops.flash_attention_heads_ref)
+    ns.flash_attention_kernel = _counting_paths(ns, _flash_path, fn)
+    ns.flash_attention = _counting_paths(ns, _flash_path,
+                                         fops.flash_attention)
     return ns
 
 
@@ -185,6 +231,14 @@ def test_flash_check_passes_the_emulated_kernel(smoke, no_sync, capsys):
     assert "rows see no key" in out and "backward" in out
 
 
+def test_flash_check_rejects_a_skipped_edge_mask(smoke, no_sync):
+    stand_in = _flash_stand_in(
+        lambda q, k, v, **kw: emulated_flash(q, k, v, block=128, **kw))
+    with pytest.raises(AssertionError, match=r"\(a\) gemma2-2b global"):
+        smoke.phase_flash_kernels(torch, stand_in, fref, CPU,
+                                  cases=_flash_cases(smoke))
+
+
 def test_flash_check_rejects_padded_keys(smoke, no_sync):
     stand_in = _flash_stand_in(
         lambda q, k, v, **kw: emulated_flash(q, k, v, pad_to=128, **kw))
@@ -203,8 +257,8 @@ def _ops_path(smoke, monkeypatch, coded_tree_reduce=tops.coded_tree_reduce):
                           "TREE_SUM_LAUNCHES", coded_tree_reduce)
              for c in ("bf16", "int8")}
     t.coded_tree_reduce = lambda wire, codec: coded[codec](wire, codec)
-    g = types.SimpleNamespace(LAUNCHES=0)
-    g.gemm = _counting(g, "LAUNCHES", gref.gemm_ref)
+    g = _gemm_stand_in(gref.gemm_ref)
+    g.gemm = g.gemm_kernel
     f = _flash_stand_in(emulated_flash)
     monkeypatch.setattr(smoke, "TREE_TIME_D", 4096)
     monkeypatch.setattr(smoke, "GEMM_CASES", [dict(smoke.GEMM_CASES[0],
@@ -216,9 +270,11 @@ def _ops_path(smoke, monkeypatch, coded_tree_reduce=tops.coded_tree_reduce):
 
 def test_ops_path_counts_every_kernel(smoke, no_sync, monkeypatch, capsys):
     t, g, f = _ops_path(smoke, monkeypatch)
-    counts = smoke.phase_kernel_ops(torch, t, tref, g, f, CPU)
+    counts, paths = smoke.phase_kernel_ops(torch, t, tref, g, f, CPU)
     assert counts == {"tree_reduce": 2, "int8_tree_reduce": 1, "gemm": 1,
                       "flash_attention": 1}
+    assert paths == {"gemm": {"wgmma": 1, "mma": 0, "f32": 0},
+                     "flash_attention": {"wgmma": 1, "f32": 0}}
     out = capsys.readouterr().out
     print(out)
     assert "bit-identical to ref.py" in out
