@@ -22,7 +22,10 @@ The quickest proof that the port starts on the card.  Phases, in order
                 DeepSeek-V3's MLA prefill, the two padding cases, a
                 window whose last rows see no key and the wgmma
                 kernel's tile edges, NaN past Tk; each call must add one
-                to its launch count and to its kernel's count by path.
+                to its launch count and to its kernel's count by path;
+                then the public op on what the strict kernel wrapper
+                refuses (D 72 / Dv 40, inputs off 16 bytes; D past 256
+                must raise).
                 Then B3-B6 timed beside their plain versions, library
                 yardsticks (``torch.sum``, ``torch.matmul``, SDPA with
                 and without the softcap on B5's side) and bounds, B6
@@ -34,10 +37,14 @@ The quickest proof that the port starts on the card.  Phases, in order
                 gemma2-2b's shape
                 (Hkv 4, G 2, d 256, bs 16) and three more shapes, ragged
                 lengths up to 8192 over sentinel-padded tables, window
-                None / 4096 / small, softcap None / 50; then time kernel,
-                plain version and the gather + SDPA yardstick at the serve
-                shape.  The codec decode-add kernels (B1 bf16, B2 int8) are
-                held to their plain versions BIT FOR BIT (ragged M, ±0,
+                None / 4096 / small, softcap None / 50; then time kernel
+                (split kernel + merge), plain version and the gather +
+                SDPA yardstick at the serve shape, at its lengths over
+                tables of the full context (n 512) and at gemma2-2b's
+                full context (8 rows of 8192), and the kernel over
+                lengths 1 to 8192 (intercept and slope).  The codec decode-add kernels
+                (B1 bf16, B2 int8) are held to their plain versions BIT
+                FOR BIT (ragged M, ±0,
                 subnormal and ±Inf keep values, aligned and unaligned
                 pointers), then timed with their plain versions and the
                 one-call library yardsticks at the train phase's largest
@@ -48,13 +55,21 @@ The quickest proof that the port starts on the card.  Phases, in order
                 row relative to the row's RMS, NaN-poisoned unused and
                 past-length slots; then kernel, plain version and gather +
                 SDPA timed at DeepSeek's serve shape (B 8, H 128, lengths
-                to 336);
+                to 336), at its lengths over tables of n 256 and at 8 rows
+                of 4096.  Then B7 and B8 at each of their check cases once
+                more, on copies of their inputs, partial states and
+                outputs inside guard bytes (NaN, bad block ids) and over
+                tables wider than any row: no write outside a buffer, no
+                read past an input, every partial state written, the
+                output bit for bit the same twice and as unguarded;
   3. serve    — ``repro_torch.launch.serve.main`` on gemma2-2b at full
                 width (bf16, random init, paged KV, 16 requests): all
-                requests complete and the kernel's launch count equals
-                26 x the engine's decode steps;
+                requests complete and the kernel's and its merge's launch
+                counts each equal 26 x the engine's decode steps;
   4. decode   — one full-width decode step on one cache, through the kernel
                 and through the gather-then-attend lowering: logits agree;
+                one more under torch.cuda.set_sync_debug_mode("error"):
+                the decode forward makes no synchronising call;
   5. train    — ``repro_torch.launch.train.run`` on gemma2-2b at its
                 published widths with ONE cut, 26 -> 8 layers (memory: see
                 ``TRAIN_CUT``): a BSP world of 4 ranks on the card, fractal
@@ -71,16 +86,25 @@ The quickest proof that the port starts on the card.  Phases, in order
                 + 2 MLA+MoE, plus the MTP module; memory: see ``DS_CUT``),
                 bf16, random init from seed 0, the same traffic as phase
                 3: all requests complete, every token is below the vocab,
-                and B8 launched 5 x the engine's decode steps;
+                and B8 and its merge each launched 5 x the engine's
+                decode steps;
   7. decode   — one DeepSeek decode step on one cache, through B8 and
                 through the gather lowering: logits agree within
-                ``DS_LOGIT_ATOL``; then a profiled step (host ms, device
-                ms, idle share, B8's share, the expert GEMMs' share);
+                ``DS_LOGIT_ATOL``; one step with no synchronising call, as
+                in 4; then a profiled step (host ms, device ms, idle share,
+                B8's share, the expert GEMMs' share);
   8. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the repo's ``src/`` beside it, it exits 1 and
 prints no result.
+
+    python3 chip_smoke.py --decode-timings OTHER/src
+
+times only B7 and B8 (phase 2's serve, wide-table and long-context
+shapes, B7's length sweep) with the kernels of another checkout: a
+change to the paged decode kernels is compared with its parent in one
+run on one card (parent, change, change, parent).
 """
 
 import gc
@@ -376,22 +400,22 @@ def _timed(torch, fns, calls, reps):
                 library_ms=t.get("library"))
 
 
-def phase_timing(torch, ops, ref, cfg):
-    """Kernel, plain version and gather + SDPA at the serve shape: 8 rows,
-    gemma2-2b's heads, lengths of a mid-serve step; one pool pair per layer
-    (26, like the decode step), cycled so each call finds its pool cold in
-    the 50 MB L2."""
+def _b7_timing(torch, ops, ref, cfg, *, lengths, n, pairs, calls, reps,
+               seed, label):
+    """Kernel, plain version and gather + SDPA over B = len(lengths) rows of
+    gemma2-2b's heads, block 16, tables of n blocks (each row's blocks
+    contiguous in the pool), softcap 50 and the 4096 window on even calls
+    (the local layers); ``pairs`` pool pairs cycled so each call finds its
+    pool cold in the 50 MB L2.  The bound counts the K/V rows each call
+    must read (the window's on even calls), q, out, tables and lengths."""
     import numpy as np
     import torch.nn.functional as F
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(1)
-    B, bs = 8, 16
+    B, bs = len(lengths), 16
     Hkv, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim
-    max_len = -(-(256 + 64 + 1) // bs) * bs
-    n = max_len // bs
     N = 1 + B * n
-    lengths = rng.integers(257, 321, size=B).astype(np.int32)
+    lengths = np.asarray(lengths, np.int32)
     tables = np.zeros((B, n), np.int32)
     for b in range(B):
         nb = -(-int(lengths[b]) // bs)
@@ -399,13 +423,10 @@ def phase_timing(torch, ops, ref, cfg):
     tables_t = torch.from_numpy(tables).to(dev)
     lens_t = torch.from_numpy(lengths).to(dev)
     g = torch.Generator(device=dev)
-    g.manual_seed(1)
-    layers = cfg.num_layers
-    pools = [(torch.randn(N, bs, Hkv, d, generator=g, device=dev
-                          ).to(torch.bfloat16),
-              torch.randn(N, bs, Hkv, d, generator=g, device=dev
-                          ).to(torch.bfloat16)) for _ in range(layers)]
-    q = torch.randn(B, Hkv, G, d, generator=g, device=dev).to(torch.bfloat16)
+    g.manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    pools = [(mk(N, bs, Hkv, d), mk(N, bs, Hkv, d)) for _ in range(pairs)]
+    q = mk(B, Hkv, G, d)
     scale = 1.0 / math.sqrt(d)
     cap = cfg.attn_softcap
     win = lambda i: cfg.sliding_window if i % 2 == 0 else None
@@ -417,17 +438,17 @@ def phase_timing(torch, ops, ref, cfg):
              (None, cfg.sliding_window)}
 
     def kernel(i):
-        kp, vp = pools[i % layers]
+        kp, vp = pools[i % pairs]
         ops.paged_attention_kernel(q, kp, vp, tables_t, lens_t, scale=scale,
                                    window=win(i), softcap=cap)
 
     def plain(i):
-        kp, vp = pools[i % layers]
+        kp, vp = pools[i % pairs]
         ref.paged_attention_ref(q, kp, vp, tables_t, lens_t, scale=scale,
                                 window=win(i), softcap=cap)
 
     def library(i):
-        kp, vp = pools[i % layers]
+        kp, vp = pools[i % pairs]
         k = ref._gather(kp, tables_t).transpose(1, 2)
         v = ref._gather(vp, tables_t).transpose(1, 2)
         F.scaled_dot_product_attention(q, k, v, attn_mask=masks[win(i)],
@@ -437,29 +458,104 @@ def phase_timing(torch, ops, ref, cfg):
     for name, fn in (("plain", plain), ("kernel", kernel),
                      ("kernel2", kernel), ("plain2", plain),
                      ("library", library)):
-        t[name] = _time_ms(torch, fn, layers, reps=20)
-    kv_bytes = int(lengths.sum()) * Hkv * 2 * d * 2
+        t[name] = _time_ms(torch, fn, calls, reps=reps)
+    read = [int(np.minimum(lengths, win(i) or S).sum()) for i in range(calls)]
+    kv_bytes = sum(read) / calls * Hkv * 2 * d * 2
     io_bytes = 2 * q.numel() * 2 + tables.nbytes + lengths.nbytes
-    flops = 2 * 2 * d * G * Hkv * int(lengths.sum())
+    flops = 2 * 2 * d * G * Hkv * sum(read) / calls
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    g = {k: v["graph"] for k, v in t.items()}
-    res = dict(ms=min(g["kernel"], g["kernel2"]),
-               plain_ms=min(g["plain"], g["plain2"]),
-               library_ms=g["library"], bound_ms=max(t_bytes, t_ops),
+    gt = {k: v["graph"] for k, v in t.items()}
+    res = dict(ms=min(gt["kernel"], gt["kernel2"]),
+               plain_ms=min(gt["plain"], gt["plain2"]),
+               library_ms=gt["library"], bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  serve shape: B={B} Hkv={Hkv} G={G} d={d} bs={bs} n={n} "
-          f"bf16, lengths {lengths.tolist()}, softcap {cap}, window "
-          f"{cfg.sliding_window} on even layers; {layers} pool pairs "
-          f"cycled")
+    shown = lengths.tolist() if len(set(lengths.tolist())) > 1 else \
+        f"all {lengths[0]}"
+    print(f"  B7 {label}: B={B} Hkv={Hkv} G={G} d={d} bs={bs} n={n} bf16, "
+          f"lengths {shown}, softcap {cap}, window {cfg.sliding_window} on "
+          f"even calls; {pairs} pool pairs cycled over {calls} calls")
     for name, v in t.items():
-        print(f"  {name:8s}: {v['graph']:.5f} ms/call device (CUDA graph), "
-              f"{v['eager']:.5f} ms/call eager (host included)")
-    print(f"  bound {res['bound_ms']:.5f} ms ({res['bound_by']}: "
-          f"{kv_bytes + io_bytes} B at {HBM_BYTES_PER_S:.3g} B/s, {flops} "
-          f"flop at {F32_FLOPS_PER_S:.3g} flop/s); library = gather + "
-          f"SDPA without the softcap")
+        print(f"  B7 {name:8s}: {v['graph']:.5f} ms/call device (CUDA "
+              f"graph), {v['eager']:.5f} ms/call eager (host included)")
+    print(f"  B7 bound {res['bound_ms']:.5f} ms ({res['bound_by']}: "
+          f"{kv_bytes + io_bytes:.0f} B a call at {HBM_BYTES_PER_S:.3g} "
+          f"B/s, {flops:.0f} flop at {F32_FLOPS_PER_S:.3g} flop/s); library "
+          f"= gather + SDPA without the softcap")
     return res
+
+
+def phase_timing(torch, ops, ref, cfg):
+    """B7 at the serve shape: 8 rows, gemma2-2b's heads, lengths of a
+    mid-serve step (257-320, n 21); one pool pair per layer (26, like the
+    decode step)."""
+    import numpy as np
+    lengths = np.random.default_rng(1).integers(257, 321, size=8)
+    return _b7_timing(torch, ops, ref, cfg, lengths=lengths,
+                      n=-(-(256 + 64 + 1) // 16), pairs=cfg.num_layers,
+                      calls=cfg.num_layers, reps=20, seed=1,
+                      label="serve shape")
+
+
+def phase_wide_timing(torch, ops, ref, cfg):
+    """B7 at the serve shape's lengths (257-320) over tables of gemma2-2b's
+    whole context (n 512), as a server whose slots may grow to 8192
+    positions holds them; one pool pair per layer."""
+    import numpy as np
+    lengths = np.random.default_rng(1).integers(257, 321, size=8)
+    return _b7_timing(torch, ops, ref, cfg, lengths=lengths, n=512,
+                      pairs=cfg.num_layers, calls=cfg.num_layers, reps=20,
+                      seed=1, label="serve lengths, tables of n 512")
+
+
+def phase_long_timing(torch, ops, ref, cfg):
+    """B7 at gemma2-2b's full context: 8 rows at length 8192 (n 512),
+    window 4096 on even calls; 2 pool pairs (268 MB each) cycled."""
+    return _b7_timing(torch, ops, ref, cfg, lengths=[8192] * 8, n=512,
+                      pairs=2, calls=4, reps=10, seed=15,
+                      label="long context")
+
+
+# where B7's time goes: every row at one length, gemma2-2b's heads,
+# softcap 50, no window; the intercept is the fixed cost of a call, the
+# slope the cost per position of a row
+SWEEP_LENGTHS = [1, 64, 320, 2048, 8192]
+
+
+def b7_length_sweep(torch, ops, cfg):
+    """Device ms per call of B7 with every one of 8 rows at each length of
+    ``SWEEP_LENGTHS`` (tables of ceil(L / 16) blocks; enough pool pairs
+    cycled to exceed the L2), and the least-squares line through them."""
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    B, bs = 8, 16
+    Hkv, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    q = mk(B, Hkv, G, d)
+    out = {}
+    for L in SWEEP_LENGTHS:
+        n = -(-L // bs)
+        N = 1 + B * n
+        pairs = min(256, max(2, -(-100_000_000 // (N * bs * Hkv * d * 4))))
+        pools = [(mk(N, bs, Hkv, d), mk(N, bs, Hkv, d)) for _ in range(pairs)]
+        tables = (1 + torch.arange(B * n, dtype=torch.int32, device=dev)
+                  ).reshape(B, n)
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        out[L] = _time_ms(torch, lambda i: ops.paged_attention_kernel(
+            q, *pools[i % pairs], tables, lens, scale=d ** -0.5,
+            softcap=cfg.attn_softcap), pairs, reps=10)["graph"]
+        del pools
+    slope, icept = np.polyfit(SWEEP_LENGTHS, [out[L] for L in SWEEP_LENGTHS],
+                              1)
+    print("  B7 kernel, every row at length L: " + ", ".join(
+        f"L={L}: {ms:.5f} ms" for L, ms in out.items())
+        + f"; least squares: {icept:.5f} ms + {slope * 1e3:.5f} ms per "
+        f"1000 positions")
+    return dict(ms=out, intercept_ms=float(icept),
+                slope_ms_per_1000=float(slope * 1e3))
 
 
 # ---------------------------------------------------------------------------
@@ -551,22 +647,22 @@ def phase_mla_kernels(torch, ops, ref, dev):
     return worst_abs, worst_rel
 
 
-def phase_mla_timing(torch, ops, ref, cfg, pools=24):
-    """B8, its plain version and gather + SDPA at DeepSeek's serve shape:
-    8 rows, 128 heads, r 512, dr 64, block 16, lengths of a late serve
-    step (up to 336 = 21 blocks).  ``pools`` latent pool pairs (75 MB in
-    all, more than the 50 MB L2) are cycled, as the decode step's expert
-    weights flush the L2 between two layers' calls."""
+def _b8_timing(torch, ops, ref, cfg, *, lengths, n, pools, reps, seed,
+               label):
+    """B8, its plain version and gather + SDPA over B = len(lengths) rows
+    of DeepSeek-V3's 128 heads, r 512, dr 64, block 16, tables of n blocks
+    (each row's contiguous in the pool); ``pools`` latent pool pairs
+    cycled, as the decode step's expert weights flush the L2 between two
+    layers' calls.  Returns the kernel table's row and the inputs, for the
+    length sweep."""
     import numpy as np
     import torch.nn.functional as F
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(5)
     m = cfg.mla
-    B, bs, H = 8, 16, cfg.num_heads
+    B, bs, H = len(lengths), 16, cfg.num_heads
     r, dr = m.kv_lora_rank, m.qk_rope_head_dim
-    n = -(-(256 + 64 + 1) // bs)
     N = 1 + B * n
-    lengths = rng.integers(257, n * bs + 1, size=B).astype(np.int32)
+    lengths = np.asarray(lengths, np.int32)
     tables = np.zeros((B, n), np.int32)
     for b in range(B):
         tables[b, :-(-int(lengths[b]) // bs)] = 1 + b * n + np.arange(
@@ -574,7 +670,7 @@ def phase_mla_timing(torch, ops, ref, cfg, pools=24):
     tables_t = torch.from_numpy(tables).to(dev)
     lens_t = torch.from_numpy(lengths).to(dev)
     g = torch.Generator(device=dev)
-    g.manual_seed(5)
+    g.manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=g, device=dev).to(
         torch.bfloat16)
     latents = [(mk(N, bs, r), mk(N, bs, dr)) for _ in range(pools)]
@@ -607,7 +703,7 @@ def phase_mla_timing(torch, ops, ref, cfg, pools=24):
     for name, fn in (("plain", plain), ("kernel", kernel),
                      ("kernel2", kernel), ("plain2", plain),
                      ("library", library)):
-        t[name] = _time_ms(torch, fn, pools, reps=10)
+        t[name] = _time_ms(torch, fn, pools, reps=reps)
     tot = int(lengths.sum())
     io_bytes = (qe.numel() + qr.numel() + B * H * r) * 2 + tables.nbytes \
         + lengths.nbytes
@@ -620,9 +716,10 @@ def phase_mla_timing(torch, ops, ref, cfg, pools=24):
                plain_ms=min(gt["plain"], gt["plain2"]),
                library_ms=gt["library"], bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  B8 serve shape: B={B} H={H} r={r} dr={dr} bs={bs} n={n} "
-          f"bf16, lengths {lengths.tolist()}; {pools} latent pool pairs "
-          f"cycled")
+    shown = lengths.tolist() if len(set(lengths.tolist())) > 1 else \
+        f"all {lengths[0]}"
+    print(f"  B8 {label}: B={B} H={H} r={r} dr={dr} bs={bs} n={n} bf16, "
+          f"lengths {shown}; {pools} latent pool pairs cycled")
     for name, v in t.items():
         print(f"  B8 {name:8s}: {v['graph']:.5f} ms/call device (CUDA "
               f"graph), {v['eager']:.5f} ms/call eager (host included)")
@@ -630,7 +727,23 @@ def phase_mla_timing(torch, ops, ref, cfg, pools=24):
           f"{lat_bytes + io_bytes} B at {HBM_BYTES_PER_S:.3g} B/s; {flops} "
           f"flop at {BF16_FLOPS_PER_S:.3g} flop/s, {t_ops:.5f} ms); "
           f"library = gather + SDPA over [c_kv | k_rope] keys, c_kv values")
-    # how the kernel's time grows: every row at one length, then 1 row
+    return res, (qe, qr, latents, tables_t, scale)
+
+
+def phase_mla_timing(torch, ops, ref, cfg, pools=24):
+    """B8 at DeepSeek's serve shape: 8 rows, lengths of a late serve step
+    (257 up to 336 = 21 blocks); ``pools`` latent pool pairs (75 MB in
+    all, more than the 50 MB L2).  Then how the kernel's time grows:
+    every row at one length, then 1 row."""
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    bs = 16
+    n = -(-(256 + 64 + 1) // bs)
+    lengths = np.random.default_rng(5).integers(257, n * bs + 1, size=8)
+    res, (qe, qr, latents, tables_t, scale) = _b8_timing(
+        torch, ops, ref, cfg, lengths=lengths, n=n, pools=pools, reps=10,
+        seed=5, label="serve shape")
+    B, S = len(lengths), n * bs
     sweep = []
     for rows, L in ((B, 32), (B, 128), (B, S), (1, S)):
         lens_l = torch.full((rows,), L, dtype=torch.int32, device=dev)
@@ -646,6 +759,165 @@ def phase_mla_timing(torch, ops, ref, cfg, pools=24):
         sweep.append(f"B={rows} L={L}: {ms:.5f} ms")
     print("  B8 kernel, every row at length L: " + ", ".join(sweep))
     return res
+
+
+def phase_mla_wide_timing(torch, ops, ref, cfg):
+    """B8 at the serve shape's lengths (257-336) over tables of the long
+    context's width (n 256); 24 latent pool pairs."""
+    import numpy as np
+    lengths = np.random.default_rng(5).integers(257, 337, size=8)
+    return _b8_timing(torch, ops, ref, cfg, lengths=lengths, n=256,
+                      pools=24, reps=10, seed=5,
+                      label="serve lengths, tables of n 256")[0]
+
+
+def phase_mla_long_timing(torch, ops, ref, cfg):
+    """B8 at a long decode context: 8 rows at length 4096 (n 256); 4 latent
+    pool pairs (37.7 MB each) cycled."""
+    return _b8_timing(torch, ops, ref, cfg, lengths=[4096] * 8, n=256,
+                      pools=4, reps=10, seed=17, label="long context")[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: B7's and B8's memory accesses, checked by guard bytes
+# ---------------------------------------------------------------------------
+
+# elements of a fill pattern on either side of every buffer a guarded call
+# of B7 or B8 touches, and the patterns: a NaN for the floats (read into a
+# product, it would reach the output), an out-of-range block id for the
+# int32 tables and lengths (dereferenced, it would fault)
+GUARD = 4096
+GUARD_BITS = {"float32": 0x7FC0BEEF, "bfloat16": 0x7FC1, "int32": 0x3FFFFFFF}
+# block-table columns past every row's length, holding GUARD_BITS's block
+# id (never dereferenced), so the plan also has splits past every row
+GUARD_EXTRA_PAGES = 64
+
+
+def _bits(torch, t):
+    """``t``'s elements as integers of its width (bitwise comparisons)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _guarded(torch, t, copy=True):
+    """A copy of ``t`` (or, without ``copy``, a tensor like it holding the
+    fill) inside a buffer of GUARD fill elements on either side; returns
+    (buffer, copy)."""
+    flat = torch.empty(t.numel() + 2 * GUARD, dtype=t.dtype, device=t.device)
+    _bits(torch, flat).fill_(GUARD_BITS[str(t.dtype)[6:]])
+    view = flat[GUARD:GUARD + t.numel()].view(t.shape)
+    if copy:
+        view.copy_(t)
+    return flat, view
+
+
+def _guards_hold(torch, flat, n):
+    """Whether the fill on either side of an ``n``-element copy is
+    intact."""
+    b = _bits(torch, flat)
+    fill = GUARD_BITS[str(flat.dtype)[6:]]
+    return bool((b[:GUARD] == fill).all() and (b[GUARD + n:] == fill).all())
+
+
+def _guarded_run(torch, ops, kernel, inputs, label):
+    """``kernel(*inputs)`` twice on guarded copies of the inputs, with its
+    partial states and output in guarded buffers (``ops._buffers``
+    patched), and once as it is.  Fails unless every guard and every input
+    is unchanged, every partial m and l and every acc of a live split was
+    written, and the three outputs are equal bit for bit (twice the same:
+    no race showed; as unguarded: nothing was read past an input)."""
+    made, real = [], ops._buffers
+
+    def buffers(rows, splits, width, out_shape, dtype, device):
+        (m, l, acc), out = real(rows, splits, width, out_shape, dtype, device)
+        got = [_guarded(torch, x, copy=False) for x in (m, l, acc, out)]
+        made.append((rows * splits, width, got))
+        return tuple(v for _, v in got[:3]), got[3][1]
+
+    want = kernel(*inputs)
+    guarded = [_guarded(torch, x) for x in inputs]
+    ops._buffers = buffers
+    try:
+        runs = [kernel(*(v for _, v in guarded)) for _ in range(2)]
+    finally:
+        ops._buffers = real
+    torch.cuda.synchronize()
+    unset = lambda t: (_bits(torch, t) == GUARD_BITS[str(t.dtype)[6:]]).any()
+    bad = [f"input {i}" for i, ((flat, v), x) in enumerate(zip(guarded,
+                                                                inputs))
+           if not _guards_hold(torch, flat, x.numel())
+           or not torch.equal(_bits(torch, v), _bits(torch, x))]
+    for k, (states, width, got) in enumerate(made):
+        for name, (flat, t) in zip(("m", "l", "acc", "out"), got):
+            if not _guards_hold(torch, flat, t.numel()):
+                bad.append(f"run {k}: a write past {name}")
+        m, l, acc, out = (v for _, v in got)
+        m, l = m[:states], l[:states]
+        if unset(m) or unset(l):
+            bad.append(f"run {k}: a partial m or l not written")
+        if unset(acc.view(states, width)[~torch.isinf(m)]):
+            bad.append(f"run {k}: a live split's acc not written")
+        if unset(out):
+            bad.append(f"run {k}: an output element not written")
+    if not all(torch.equal(_bits(torch, r), _bits(torch, want))
+               for r in runs):
+        bad.append("outputs differ between the guarded runs and the "
+                   "unguarded call")
+    if len(made) != 2:
+        bad.append(f"{len(made)} guarded buffer sets, want 2")
+    if bad:
+        raise AssertionError(f"{label}: {'; '.join(bad)}")
+
+
+def phase_guards(torch, ops, dev):
+    """B7 at every ``phase_kernels`` case and B8 at every ``MLA_CASES``
+    case, with tables GUARD_EXTRA_PAGES wider than any row needs (so the
+    plan has splits past every row, and empty ones), through
+    ``_guarded_run``.  Returns the number of guarded calls."""
+    import numpy as np
+    rng, calls = np.random.default_rng(6), 0
+
+    def widen(tables):
+        extra = torch.full((tables.shape[0], GUARD_EXTRA_PAGES),
+                           GUARD_BITS["int32"], dtype=torch.int32,
+                           device=tables.device)
+        return torch.cat([tables, extra], 1).contiguous()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shp in KERNEL_SHAPES:
+            q, kp, vp, tables, lens = _paged_inputs(
+                torch, rng, lengths=KERNEL_LENGTHS, dtype=dtype, dev=dev,
+                **shp)
+            tables = widen(tables)
+            for window in (None, 4096, 100):
+                for cap in (None, 50.0):
+                    kw = dict(scale=shp["d"] ** -0.5, window=window,
+                              softcap=cap)
+                    _guarded_run(
+                        torch, ops,
+                        lambda *a: ops.paged_attention_kernel(*a, **kw),
+                        (q, kp, vp, tables, lens),
+                        f"B7 {str(dtype)[6:]} {shp} window={window} "
+                        f"softcap={cap}")
+                    calls += 3
+    for case in MLA_CASES:
+        shp = {k: case[k] for k in ("H", "r", "dr", "bs")}
+        qe, qr, ckv, kr, tables, lens = _mla_inputs(
+            torch, rng, lengths=MLA_LENGTHS,
+            dtype=getattr(torch, case["dtype"]), dev=dev, **shp)
+        scale = (128 + case["dr"]) ** -0.5
+        _guarded_run(
+            torch, ops,
+            lambda *a: ops.paged_mla_attention_kernel(*a, scale=scale),
+            (qe, qr, ckv, kr, widen(tables), lens), f"B8 {case}")
+        calls += 3
+    print(f"  B7/B8 guard bytes: {calls} calls (every B7 case of "
+          f"phase_kernels, every B8 case, tables {GUARD_EXTRA_PAGES} pages "
+          f"wider holding block id {GUARD_BITS['int32']:#x}; inputs, "
+          f"partial states and outputs inside {GUARD} elements of NaN or "
+          "bad ids): no write outside its buffer, inputs unchanged, every "
+          "partial state written, outputs equal bit for bit twice and to "
+          "the unguarded call")
+    return calls
 
 
 # ---------------------------------------------------------------------------
@@ -867,6 +1139,18 @@ FLASH_CASES = [
 FLASH_TOL = 2e-4
 FLASH_BF16_ROW_RTOL = 1e-1
 FLASH_GRAD_RTOL = 1e-2
+# The public op on shapes the strict kernel wrapper refuses (ROADMAP C5),
+# at B5's bounds above: (g) D 72 and Dv 40, zero-padded to 80 and 48 in
+# bf16 with the scale of D 72 (f32 takes them as they are); (h) q, k and v
+# that start 2 bytes off 16 (copied before the launch).
+FLASH_PAD_CASES = [
+    dict(name="(g) D 72, Dv 40", B=2, Tq=200, Tk=200, Hq=4, Hkv=2, D=72,
+         Dv=40, causal=True, window=None, softcap=50.0, dtype="bfloat16"),
+    dict(name="(g) D 72, Dv 40", B=2, Tq=200, Tk=200, Hq=4, Hkv=2, D=72,
+         Dv=40, causal=True, window=None, softcap=50.0, dtype="float32"),
+    dict(name="(h) q, k, v off 16 bytes", B=1, Tq=128, Tk=128, Hq=4, Hkv=2,
+         D=64, Dv=64, causal=True, window=None, softcap=None,
+         dtype="bfloat16", offset=1)]
 
 
 def _launch_once(torch, mod, count, fn, path=None):
@@ -1152,39 +1436,8 @@ def phase_flash_kernels(torch, fops, fref, dev, cases=None):
         out = _launch_once(torch, fops, "LAUNCHES",
                            lambda: fops.flash_attention_kernel(q, k, v, **kw),
                            path)
-        want = fops.flash_attention_heads_ref(q, k, v, **kw)
-        err = (out.float() - want.float())[:, seen].abs().max().item()
-        shape = (f"B={case['B']} Tq={case['Tq']} Tk={case['Tk']} "
-                 f"Hq={case['Hq']} Hkv={case['Hkv']} D={case['D']} "
-                 f"Dv={case['Dv']} causal={kw['causal']} "
-                 f"window={kw['window']} softcap={kw['softcap']}")
-        line = (f"  B5 {case['dtype']:8s} {case['name']}: {shape} "
-                f"({path}): max|kernel-ref| = {err:.3e}")
-        if dtype == torch.float32:
-            ok = bool(((out - want)[:, seen].abs() <= FLASH_TOL
-                       + FLASH_TOL * want[:, seen].abs()).all())
-            line += f" (rtol = atol = {FLASH_TOL:g})"
-            rel = 0.0
-        else:
-            want32 = fops.flash_attention_heads_ref(q.float(), k.float(),
-                                                    v.float(), **kw)
-            rel = _row_rel_err(out[:, seen], want32[:, seen])
-            rel16 = _row_rel_err(out[:, seen], want[:, seen])
-            ref16 = _row_rel_err(want[:, seen], want32[:, seen])
-            ok = rel <= BF16_ROW_RTOL_F32 and rel16 <= FLASH_BF16_ROW_RTOL
-            line += (f"; per row / RMS(ref row): vs ref.py in f32 {rel:.3e} "
-                     f"(rtol {BF16_ROW_RTOL_F32:g}), vs bf16 ref.py "
-                     f"{rel16:.3e} (rtol {FLASH_BF16_ROW_RTOL:g}; bf16 "
-                     f"ref.py vs f32 {ref16:.3e})")
-            del want32
-        blind = (~seen).sum().item()
-        if blind:
-            line += f"; {blind} rows see no key"
-            ok = ok and bool((out[:, ~seen] == 0).all())
-        print(line)
-        if not ok:
-            raise AssertionError("flash_attention kernel disagrees with "
-                                 "ref.py: " + line.strip())
+        err, rel = _flash_compare(torch, fops, case, q, k, v, out, seen,
+                                  path)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         if case["B"] == 1:
             clean = _launch_once(torch, fops, "LAUNCHES",
@@ -1192,11 +1445,103 @@ def phase_flash_kernels(torch, fops, fref, dev, cases=None):
                                      q, k.clone(), v.clone(), **kw), path)
             if not _same_bits(torch, clean, out):
                 raise AssertionError("NaN past Tk reached the B5 kernel's "
-                                     "output: " + line.strip())
+                                     f"output: {case['name']}")
         if case.get("grad"):
             _flash_grad_check(torch, fops, case, q, k, v, g)
-        del out, want
+        del out
     print("  B5 NaN in K/V rows past Tk: output unchanged, bit for bit")
+    return worst_abs, worst_rel
+
+
+def _flash_compare(torch, fops, case, q, k, v, out, seen, path):
+    """Hold ``out`` to ref.py on the rows that see a key (rows that see
+    none must be 0): f32 within ``FLASH_TOL``; bf16 per output row against
+    ref.py in f32 and in bf16.  Prints the case's line, raises on a
+    disagreement; returns the absolute and the bf16 row-relative error
+    (against ref.py in f32; 0 in f32)."""
+    kw = _flash_kw(case)
+    want = fops.flash_attention_heads_ref(q, k, v, **kw)
+    err = (out.float() - want.float())[:, seen].abs().max().item()
+    shape = (f"B={case['B']} Tq={case['Tq']} Tk={case['Tk']} "
+             f"Hq={case['Hq']} Hkv={case['Hkv']} D={case['D']} "
+             f"Dv={case['Dv']} causal={kw['causal']} "
+             f"window={kw['window']} softcap={kw['softcap']}")
+    line = (f"  B5 {case['dtype']:8s} {case['name']}: {shape} "
+            f"({path}): max|kernel-ref| = {err:.3e}")
+    if out.dtype == torch.float32:
+        ok = bool(((out - want)[:, seen].abs() <= FLASH_TOL
+                   + FLASH_TOL * want[:, seen].abs()).all())
+        line += f" (rtol = atol = {FLASH_TOL:g})"
+        rel = 0.0
+    else:
+        want32 = fops.flash_attention_heads_ref(q.float(), k.float(),
+                                                v.float(), **kw)
+        rel = _row_rel_err(out[:, seen], want32[:, seen])
+        rel16 = _row_rel_err(out[:, seen], want[:, seen])
+        ref16 = _row_rel_err(want[:, seen], want32[:, seen])
+        ok = rel <= BF16_ROW_RTOL_F32 and rel16 <= FLASH_BF16_ROW_RTOL
+        line += (f"; per row / RMS(ref row): vs ref.py in f32 {rel:.3e} "
+                 f"(rtol {BF16_ROW_RTOL_F32:g}), vs bf16 ref.py "
+                 f"{rel16:.3e} (rtol {FLASH_BF16_ROW_RTOL:g}; bf16 "
+                 f"ref.py vs f32 {ref16:.3e})")
+    blind = (~seen).sum().item()
+    if blind:
+        line += f"; {blind} rows see no key"
+        ok = ok and bool((out[:, ~seen] == 0).all())
+    print(line)
+    if not ok or tuple(out.shape) != tuple(want.shape):
+        raise AssertionError("flash_attention kernel disagrees with "
+                             "ref.py: " + line.strip())
+    return err, rel
+
+
+def _off16(t, off):
+    """A copy of ``t`` that starts ``off`` elements into a fresh buffer:
+    contiguous, and off 16 bytes for an odd ``off`` in bf16."""
+    v = t.new_empty(t.numel() + off)[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def phase_flash_padding(torch, fops, fref, dev, cases=None):
+    """The public ``flash_attention`` op on what the strict kernel wrapper
+    refuses (ROADMAP C5): each ``FLASH_PAD_CASES`` case through
+    ``fops.flash_attention``, one launch of the case's kernel, held to
+    ref.py as ``phase_flash_kernels`` holds the kernel; then D past the
+    card's limit must raise, launching nothing.  Returns the largest
+    absolute and bf16 row-relative error."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    worst_abs = worst_rel = 0.0
+    for case in cases or FLASH_PAD_CASES:
+        kw = _flash_kw(case)
+        q, k, v = (_off16(t, case.get("offset", 0))
+                   for t in _flash_inputs(torch, case, g, dev))
+        if case.get("offset") and not all(t.data_ptr() % 16 for t in
+                                          (q, k, v)):
+            raise AssertionError("the off-16-byte case is aligned")
+        seen = fref.attention_mask(case["Tq"], case["Tk"], causal=kw[
+            "causal"], window=kw["window"], device=dev).any(-1)
+        path = "f32" if q.dtype == torch.float32 else "wgmma"
+        out = _launch_once(torch, fops, "LAUNCHES",
+                           lambda: fops.flash_attention(q, k, v, **kw), path)
+        err, rel = _flash_compare(torch, fops, case, q, k, v, out, seen,
+                                  f"public op, {path}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    big = torch.zeros(1, 16, 2, fops.MAX_HEAD_DIM + 8, dtype=torch.bfloat16,
+                      device=dev)
+    before = fops.LAUNCHES
+    try:
+        fops.flash_attention(big, big, big)
+    except ValueError as exc:
+        if str(fops.MAX_HEAD_DIM) not in str(exc):
+            raise AssertionError(f"D past the limit: unclear error {exc}")
+        print(f"  B5 public op, D = Dv = {big.shape[-1]}: raises "
+              f"ValueError({exc}), no launch")
+    else:
+        raise AssertionError(f"D = {big.shape[-1]} did not raise")
+    if fops.LAUNCHES != before:
+        raise AssertionError("a refused shape launched a kernel")
     return worst_abs, worst_rel
 
 
@@ -1383,19 +1728,23 @@ def phase_serve(torch, ops, cfg, argv):
     """The main serve path, ``launch.serve.run(cfg, args)``; the kernels'
     counts are set to 0 just before and read just after.  Returns the
     launches of the decode kernel of ``cfg``'s attention (B8 for MLA, B7
-    otherwise), which must be one per layer per decode step."""
+    otherwise) and of its merge, each of which must be one per layer per
+    decode step."""
     from repro_torch.launch import serve as serve_cli
     dev = torch.device("cuda", 0)
     args = serve_cli.parse_args(argv)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.LAUNCHES = ops.MLA_LAUNCHES = 0
+    ops.MERGE_LAUNCHES = ops.MLA_MERGE_LAUNCHES = 0
     t0 = time.perf_counter()
     results, metrics = serve_cli.run(cfg, args)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    gqa, mla = ops.LAUNCHES, ops.MLA_LAUNCHES
-    name, launches, other = (("paged_mla_attention", mla, gqa) if cfg.mla
-                             else ("paged_attention", gqa, mla))
+    gqa = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+    mla = (ops.MLA_LAUNCHES, ops.MLA_MERGE_LAUNCHES)
+    name, (launches, merges), other = (
+        ("paged_mla_attention", mla, gqa) if cfg.mla
+        else ("paged_attention", gqa, mla))
     s = metrics.summary()
     if s["completed"] != args.requests or len(results) != args.requests:
         raise AssertionError(f"{s['completed']}/{args.requests} requests "
@@ -1406,20 +1755,22 @@ def phase_serve(torch, ops, cfg, argv):
             raise AssertionError(f"request {rid}: bad output {out[:8]}... "
                                  f"(vocab {cfg.vocab_size})")
     want = cfg.num_layers * metrics.decode_steps
-    if launches != want or other != 0:
+    if launches != want or merges != want or any(other):
         raise AssertionError(
-            f"{name} launches {launches} != {cfg.num_layers} layers x "
-            f"{metrics.decode_steps} decode steps (other kernel: {other})")
+            f"{name} launches {launches}, merges {merges}, want "
+            f"{cfg.num_layers} layers x {metrics.decode_steps} decode steps "
+            f"of each (other kernel and merge: {other})")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"  serve {cfg.name}: {s['completed']}/{args.requests} completed, "
           f"{s['tokens_out']} tokens (all < vocab {cfg.vocab_size}), "
           f"{metrics.decode_steps} decode steps, {launches} {name} "
-          f"launches (= {cfg.num_layers} x decode steps), engine "
+          f"launches and {merges} merges (each = {cfg.num_layers} x decode "
+          f"steps), engine "
           f"{s['tokens_per_s']:.1f} tok/s over {s['wall_s']:.2f} s (run() "
           f"incl. init {wall:.2f} s), TTFT p50 {s['ttft_p50_s']:.3f} s / "
           f"p95 {s['ttft_p95_s']:.3f} s, peak memory {peak / 2**30:.2f} GiB "
           f"({peak / 1e9:.1f} GB)")
-    return launches
+    return launches, merges
 
 
 def phase_decode_step(torch, cfg, dev, atol):
@@ -1469,7 +1820,43 @@ def phase_decode_step(torch, cfg, dev, atol):
           f"{agree.item() * 100:.0f}%")
     if not err <= atol:
         raise AssertionError(f"decode logits differ by {err}")
+    with torch.inference_mode():
+        _sync_free(torch, lambda: T.decode_step(
+            params, cfg, *args, block_tables=bt, paged_kernel="auto"))
     _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt)
+
+
+def _sync_free(torch, step):
+    """One ``step()`` (a decode forward, every input already on the card)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a synchronising call
+    raises.  If one does, the step runs again under "warn" to list every
+    call site, and the phase fails."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+        first = None
+    except RuntimeError as exc:
+        first = exc
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if first is None:
+        print("  0 synchronising calls in the decode forward (one decode_step"
+              " under torch.cuda.set_sync_debug_mode('error'))")
+        return
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{w.filename}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    raise AssertionError(f"{len(sites)} synchronising calls in the decode "
+                         f"forward ({first}): {sites}")
 
 
 def _self_device_us(evt):
@@ -1480,12 +1867,26 @@ def _self_device_us(evt):
     return 0.0
 
 
+def _span_us(events):
+    """The time (us) the card spent on any of ``events``: the union of
+    their intervals, so that a kernel launched early as a programmatic
+    dependent (the paged decode kernels' merges), whose interval includes
+    its wait on the kernel before it, is not counted twice."""
+    total, end = 0.0, -math.inf
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
 def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
     """Where a full-width step's time goes: host-clock time of one prefill
     chunk and one decode step (synchronised), and the profiler's device
-    time per op for the decode step: B8's share for MLA models and the
-    expert GEMMs' share (``aten::bmm`` over the [E, ...] expert stacks)
-    for MoE models."""
+    time per op for the decode step: the paged decode kernels' share (B8
+    for MLA models, B7 otherwise; split kernel and merge, whose names both
+    carry the op's) and the expert GEMMs' share (``aten::bmm`` over the
+    [E, ...] expert stacks) for MoE models."""
     from torch.profiler import ProfilerActivity, profile
 
     def timed(fn, reps=5):
@@ -1511,18 +1912,32 @@ def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
                 step()
             torch.cuda.synchronize(dev)
     from torch.autograd import DeviceType
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 3e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _span_us(kernels) / 3e3
     print(f"  decode step {step_ms:.2f} ms, prefill chunk (64 tokens) "
           f"{chunk_ms:.2f} ms (host clock, synchronised); device kernels "
           f"{busy:.2f} ms per decode step (profiler), so the card idles "
           f"{max(0.0, 1 - busy / step_ms) * 100:.1f}% of a decode step")
-    if cfg.mla is not None:
-        b8 = sum(_self_device_us(e) for e in prof.key_averages()
-                 if "paged_mla" in e.key) / 3e3
-        print(f"  B8: {b8:.4f} ms per decode step ({cfg.num_layers} "
-              f"launches), {b8 / max(busy, 1e-9) * 100:.2f}% of its device "
-              f"time")
+    # B8's kernels: paged_mla_{mma,simt}_kernel and its merge instance
+    # (paged_mla_attention_merge); B7's: paged_attention_split_kernel and
+    # its merge instance (paged_attention_merge)
+    op, label = ("paged_mla", "B8") if cfg.mla is not None \
+        else ("paged_attention", "B7")
+    mine = [e for e in kernels if op in e.name]
+    split = sum(e.time_range.elapsed_us() for e in mine
+                if "merge" not in e.name) / 3e3
+    merge = sum(e.time_range.elapsed_us() for e in mine
+                if "merge" in e.name) / 3e3
+    if dev.type == "cuda" and not (split and merge):
+        raise AssertionError(f"the profiled decode step shows no {op} "
+                             f"split kernel ({split} ms) or merge ({merge} "
+                             "ms)")
+    span = _span_us(mine) / 3e3
+    print(f"  {label}: {span:.4f} ms per decode step on the card (split "
+          f"kernel and merge, {cfg.num_layers} launches of each; their "
+          f"intervals {split:.4f} + {merge:.4f} ms, the merge's from its "
+          f"early launch), {span / max(busy, 1e-9) * 100:.2f}% of its device "
+          "time")
     if cfg.moe is not None:
         E = cfg.moe.num_experts
         experts = sum(
@@ -1723,10 +2138,15 @@ def _ptxas_summary(log: str):
             k = re.search(r"(decode_add_\w+?_kernel)ILb([01])E",
                           m.group(1))
             mla = re.search(r"(paged_mla_[a-z]+_kernel)", m.group(1))
+            merge = re.search(r"merge_kernelI(13__nv_bfloat16|f)",
+                              m.group(1))
             ops_k = re.search(r"((?:int8_)?tree_pass_kernel|gemm_[a-z0-9]+"
                               r"_kernel|flash_[a-z]+_kernel)(?:I(f|t)(f|t))?",
                               m.group(1))
-            if mla is not None:        # B8: f32 (simt) and bf16 (mma)
+            if merge is not None:      # B7's and B8's merge: <dtype>
+                io = "f32" if merge.group(1) == "f" else "bf16"
+                label = f" merge_kernel<{io}>"
+            elif mla is not None:      # B8: f32 (simt) and bf16 (mma)
                 label = f" {mla.group(1)}"
             elif ops_k is not None:    # B3-B6: <in->out,> template numbers
                 io = {"f": "f32", "t": "bf16"}
@@ -1754,16 +2174,42 @@ def _ptxas_summary(log: str):
     return out
 
 
-def main() -> int:
+def decode_timings(torch) -> int:
+    """``--decode-timings SRC``: B7 and B8 at the serve, wide-table and
+    long-context shapes and B7's length sweep, with the kernels of the checkout whose
+    ``src/`` is first on the path.  Only the kernel wrappers and ref.py
+    are called, so an older checkout's kernels are timed alike."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.models.registry import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gemma, ds = get_config("gemma2-2b"), ds_config()
+    res = {"b7": phase_timing(torch, ops, ref, gemma),
+           "b7_long": phase_long_timing(torch, ops, ref, gemma),
+           "b7_wide": phase_wide_timing(torch, ops, ref, gemma),
+           "b7_sweep": b7_length_sweep(torch, ops, gemma),
+           "b8": phase_mla_timing(torch, ops, ref, ds),
+           "b8_long": phase_mla_long_timing(torch, ops, ref, ds),
+           "b8_wide": phase_mla_wide_timing(torch, ops, ref, ds)}
+    print(json.dumps({"decode_timings": ops.__file__, **res}))
+    print(_smi())
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found (run from the "
+    timings_only = argv[:1] == ["--decode-timings"]
+    src = Path(argv[1]).resolve() if timings_only else SRC
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found (run from the "
               "repo root checkout)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
+    if timings_only:
+        return decode_timings(torch)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.gemm import ops as gops, ref as gref
@@ -1792,6 +2238,8 @@ def main() -> int:
     gemm_err, gemm_rel = phase_gemm_kernels(torch, gops, gref, dev)
     gemm_timing = phase_gemm_timing(torch, gops, gref)
     flash_err, flash_rel = phase_flash_kernels(torch, fops, fref, dev)
+    pad_err, pad_rel = phase_flash_padding(torch, fops, fref, dev)
+    flash_err, flash_rel = max(flash_err, pad_err), max(flash_rel, pad_rel)
     flash_timing = phase_flash_timing(torch, fops, fref)
     print(f"  launches by path so far: B6 {gops.PATH_LAUNCHES}, B5 "
           f"{fops.PATH_LAUNCHES}")
@@ -1802,7 +2250,11 @@ def main() -> int:
     print(f"  B3-B6 checks, timings and ops path: "
           f"{time.perf_counter() - t0:.1f} s")
     max_err, max_rel = phase_kernels(torch, ops, ref, dev)
-    timing = phase_timing(torch, ops, ref, get_config("gemma2-2b"))
+    gemma = get_config("gemma2-2b")
+    timing = phase_timing(torch, ops, ref, gemma)
+    timing["long_context"] = phase_long_timing(torch, ops, ref, gemma)
+    timing["wide_table"] = phase_wide_timing(torch, ops, ref, gemma)
+    timing["sweep"] = b7_length_sweep(torch, ops, gemma)
     codec_err = phase_codec_kernels(torch, tops, tref, codecs, dev)
     cfg8 = train_config()
     plan = train_engine(cfg8, "int8")
@@ -1811,10 +2263,12 @@ def main() -> int:
     ds = ds_config()
     mla_err, mla_rel = phase_mla_kernels(torch, ops, ref, dev)
     mla_timing = phase_mla_timing(torch, ops, ref, ds)
+    mla_timing["long_context"] = phase_mla_long_timing(torch, ops, ref, ds)
+    mla_timing["wide_table"] = phase_mla_wide_timing(torch, ops, ref, ds)
+    phase_guards(torch, ops, dev)
 
-    gemma = get_config("gemma2-2b")
     print("[3] serve gemma2-2b at full width", flush=True)
-    launches = phase_serve(torch, ops, gemma, SERVE_ARGS)
+    launches, merges = phase_serve(torch, ops, gemma, SERVE_ARGS)
 
     print("[4] one decode step: kernel vs gather lowering", flush=True)
     phase_decode_step(torch, gemma, dev, LOGIT_ATOL)
@@ -1830,7 +2284,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[6] serve DeepSeek-V3 at full width ({ds.num_layers} of 61 "
           f"layers)", flush=True)
-    mla_launches = phase_serve(torch, ops, ds, DS_SERVE_ARGS)
+    mla_launches, mla_merges = phase_serve(torch, ops, ds, DS_SERVE_ARGS)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1843,7 +2297,8 @@ def main() -> int:
         source="src/repro_torch/kernels/paged_attention/csrc/"
                "paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:90",
-        launches=launches, max_abs_err=max_err, max_err=max_err,
+        launches=launches, merge_launches=merges, max_abs_err=max_err,
+        max_err=max_err,
         max_row_rel_err=max_rel, **timing)]
     for name, codec, line in (("decode_add_bf16", "bf16", 119),
                               ("decode_add_int8", "int8", 140)):
@@ -1858,7 +2313,8 @@ def main() -> int:
         source="src/repro_torch/kernels/paged_attention/csrc/"
                "paged_mla_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:174",
-        launches=mla_launches, max_abs_err=mla_err,
+        launches=mla_launches, merge_launches=mla_merges,
+        max_abs_err=mla_err,
         max_row_rel_err=mla_rel, **mla_timing))
     kernels.append(dict(
         name="tree_reduce", route="cuda",

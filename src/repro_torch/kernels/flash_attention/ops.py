@@ -13,10 +13,15 @@ tile shape belongs to the kernel.
   * CUDA tensors → the hand-written kernels of
     ``csrc/flash_attention.cu`` through ``flash_attention_kernel``, which
     read the [B, T, H, D] layout as it is: bf16 by the wgmma kernel fed
-    by TMA ("wgmma", which needs q, k and v to start on 16 bytes), f32 on
-    the CUDA cores ("f32").  Anything the kernels do not
-    take (a dtype, a head size, a pointer off 16 bytes) raises.  Nothing
-    falls back.
+    by TMA ("wgmma", which needs q, k and v to start on 16 bytes and D,
+    Dv in multiples of 16), f32 on the CUDA cores ("f32").  The op takes
+    what the reference's op takes up to the card's limit, D and Dv <=
+    ``MAX_HEAD_DIM``: ``kernel_forward`` zero-pads a bf16 D and Dv up to
+    a multiple of 16 (zero columns add nothing to q.k; the scale stays
+    1/sqrt(D) of the unpadded D) and slices the output back, and copies
+    an input that starts off 16 bytes.  ``flash_attention_kernel`` itself
+    stays strict: anything its kernels do not take (a dtype, a head size,
+    a pointer off 16 bytes) raises.  Nothing falls back.
 
 The port keeps ``flash_attention_ref``'s semantics everywhere: keys past
 Tk never enter the softmax, for non-causal ragged Tk and for causal
@@ -51,6 +56,7 @@ PATH_LAUNCHES = {"wgmma": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory a block may use (H100)
+MAX_HEAD_DIM = 256           # D and Dv on the card (kMaxD of the kernels)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,12 +95,13 @@ def check_aligned(*tensors) -> None:
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
-                           softcap=None) -> torch.Tensor:
+                           softcap=None, scale=None) -> torch.Tensor:
     """Launch B5 (forward): q [B,Tq,Hq,D], k [B,Tk,Hkv,D], v [B,Tk,Hkv,Dv],
     one dtype (float32 or bfloat16), contiguous on one CUDA device →
     [B,Tq,Hq,Dv] in q's dtype, on the current stream, the scores scaled by
-    1/sqrt(D).  bf16 takes D and Dv in multiples of 16 up to 256 and q, k,
-    v on 16 bytes; f32 any D and Dv up to 256; anything else raises."""
+    ``scale`` (default 1/sqrt(D)).  bf16 takes D and Dv in multiples of 16
+    up to 256 and q, k, v on 16 bytes; f32 any D and Dv up to 256;
+    anything else raises."""
     global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel needs CUDA tensors, got q "
@@ -132,7 +139,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window=None,
             max(Tq, Tk) * max(Hq, Hkv) * max(D, Dv) >= 2 ** 31:
         raise ValueError(f"shape too large for the kernel: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     out = torch.empty((B, Tq, Hq, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -167,6 +174,35 @@ def flash_attention_heads_ref(q, k, v, *, causal=True, window=None,
     return out.reshape(B, Hq, Tq, Dv).transpose(1, 2).contiguous()
 
 
+def _ready(t, pad):
+    """``t`` contiguous, its last dim zero-padded by ``pad``, starting on
+    16 bytes (a fresh allocation does)."""
+    t = t.contiguous()
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def kernel_forward(kernel, q, k, v, *, causal=True, window=None,
+                   softcap=None) -> torch.Tensor:
+    """The op's forward on the card through ``kernel`` (the signature of
+    ``flash_attention_kernel``): any D and Dv up to ``MAX_HEAD_DIM``, any
+    strides and offsets.  bf16 D and Dv are zero-padded up to a multiple
+    of 16 and the output sliced back; the scale is 1/sqrt(D) of the
+    unpadded D.  An input that is not contiguous or starts off 16 bytes
+    is copied first."""
+    _check_shapes(q, k, v)
+    D, Dv = q.shape[3], v.shape[3]
+    if max(D, Dv) > MAX_HEAD_DIM:
+        raise ValueError(f"D={D}, Dv={Dv}: the card's kernels take D and Dv "
+                         f"up to {MAX_HEAD_DIM}")
+    step = 16 if q.dtype == torch.bfloat16 else 1
+    pd, pv = -D % step, -Dv % step
+    out = kernel(_ready(q, pd), _ready(k, pd), _ready(v, pv), causal=causal,
+                 window=window, softcap=softcap, scale=1.0 / math.sqrt(D))
+    return out[..., :Dv].contiguous() if pv else out
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU).  Backward:
     recompute through the plain version and differentiate it."""
@@ -177,8 +213,7 @@ class _FlashAttention(torch.autograd.Function):
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
         if q.device.type == "cpu":
             return flash_attention_heads_ref(q, k, v, **ctx.opts)
-        return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), **ctx.opts)
+        return kernel_forward(flash_attention_kernel, q, k, v, **ctx.opts)
 
     @staticmethod
     def backward(ctx, g):
@@ -197,5 +232,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return _FlashAttention.apply(q, k, v, causal, window, softcap)
 
 
-__all__ = ["check_aligned", "flash_attention", "flash_attention_kernel",
-           "flash_attention_heads_ref", "flash_attention_ref"]
+__all__ = ["MAX_HEAD_DIM", "check_aligned", "flash_attention",
+           "flash_attention_kernel", "flash_attention_heads_ref",
+           "flash_attention_ref", "kernel_forward"]

@@ -18,38 +18,48 @@
 // Design.  The TPU kernel keeps acc [H, r] for a whole row in VMEM; at
 // full width that is 128 x 512 x 4 B = 256 KB, more than an SM's shared
 // memory or registers.  So heads are split across thread blocks, and the
-// TPU's sequential grid axis over the row's blocks becomes a loop over
-// tiles of positions inside a block.  A tile is loaded once into shared
-// memory (only the valid positions p < length, whatever block they lie
-// in; the row's block ids, or pool rows, are read into shared memory
-// first) and serves
-// both products.  Blocks at or after the length, and table entries past
-// it, are never read, so garbage (or NaN) there never reaches the output.
-// Two paths, by dtype:
-//   * bf16 (the full widths): the tensor cores.  Grid (ceil(H / 16), B), 8 warps, 16 heads per block (the
-//     mma's M).  Tiles of 32 positions arrive by cp.async into a ring of
-//     4 buffers, 3 tiles ahead of the one in use (each thread copies a
-//     fixed 16-byte column of fixed rows, the rows' pool offsets computed
-//     once per position).  Scores [16 heads, 32 positions] by mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate; warp w takes 8 positions over
-//     one half of the r + dr dims); an online softmax in f32 (16 threads
-//     per head), whose p is rounded to bf16 in shared memory; then acc
-//     [16, r] += p . c_kv by mma.sync again, warp w owning an eighth of
-//     the r columns, c_kv read back by ldmatrix.trans.
-//   * f32 (the smoke widths): the CUDA cores.  Grid (ceil(H / 8), B), 8
-//     warps, one head per warp, tiles of 16 positions in shared memory;
-//     a warp's 16
+// row's sequence is split too (flash-decoding, as B7): the grid is
+// (splits, head blocks, B).  ops.plan_splits picks the split count on the
+// host from B, the head blocks, n, bs and the SM count alone; each block
+// cuts its own row's pages on the card, from the row's length, into
+// chunks of ceil(pages / splits), at least min_pages (as B7), so a short
+// row in a wide table is still spread over the splits.  A split loads
+// only its own chunk's table entries; one past its row's length writes
+// the empty state (m = -inf, l = 0) at once.
+// Inside a split, the TPU's sequential grid axis over blocks becomes a
+// loop over tiles of positions.  A tile is loaded once into shared memory
+// (only the valid positions, whatever block they lie in) and serves both
+// products.  Blocks at or after the length, and table entries past it,
+// are never read, so garbage (or NaN) there never reaches the output.
+// Each split writes its heads' partial state in f32, m and l [B, H, S]
+// and the unnormalised acc [B, H, S, r]; split_merge.cuh (shared with B7)
+// merges them and rounds to q's dtype once.  Two paths, by dtype:
+//   * bf16 (the full widths): the tensor cores.  8 warps, 16 heads per
+//     block (the mma's M).  Tiles of 32 positions arrive by cp.async into
+//     a ring of 2 buffers, one tile ahead of the one in use (each thread
+//     copies a fixed 16-byte column of fixed rows, the rows' pool offsets
+//     computed once per position); 2 buffers, not the first version's 4,
+//     so that two blocks fit an SM and the splits of a serve step run in
+//     one wave.
+//     Scores [16 heads, 32 positions] by mma.sync m16n8k16 (bf16 in, f32
+//     accumulate; warp w takes 8 positions over one half of the r + dr
+//     dims); an online softmax in f32 (16 threads per head), whose p is
+//     rounded to bf16 in shared memory; then acc [16, r] += p . c_kv by
+//     mma.sync again, warp w owning an eighth of the r columns, c_kv read
+//     back by ldmatrix.trans.
+//   * f32 (the smoke widths): the CUDA cores.  8 warps, one head per
+//     warp, tiles of 16 positions in shared memory; a warp's 16
 //     lane-strided dot products and butterfly sums interleave (rows past
 //     the valid count are masked, never branched around); each thread
 //     holds its share of the next tile in registers while the current
 //     one is multiplied; thread i accumulates latent columns 2i, 2i + 1
 //     for the block's 8 heads.
-// Each block re-reads its row's latent tiles (ceil(H / 16) = 8 times at
+// Each split re-reads its latent tiles once per head block (8 times at
 // full width), which the 50 MB L2 serves.
 // Sizes: r <= 512 and dr <= 128, multiples of 4 in f32 (16-byte chunks)
 // and of 16 in bf16 (the mma's k-steps); r = 32, dr = 16 in f32 and
 // r = 512, dr = 64 in bf16 are the smoke and the full widths; any H and
-// bs; n while the row's block ids (f32) or pool rows (bf16) fit in
+// bs; pages while a split's block ids (f32) or pool rows (bf16) fit in
 // shared memory beside the tiles.
 //
 // Bound on this card: HBM bytes.  A call must read each valid position's
@@ -59,13 +69,10 @@
 // 0.7 us at the bf16 tensor-core peak.
 //
 // What this design leaves on the table (work for a later change): a
-// block's tiles go one after another, each a chain of dependent steps
-// (scores, a barrier, the softmax, a barrier, PV, a barrier) that 8
-// warps cannot hide, so the time grows with the length and not with B or
-// H while the grid has fewer blocks than SMs (64 at the serve shape, on
-// 132).  Splitting the sequence across blocks (flash-decoding, with a
-// second pass that merges the partial softmax states) is the next step;
-// wgmma and TMA after it.
+// split's tiles still go one after another, each a chain of dependent
+// steps (scores, a barrier, the softmax, a barrier, PV, a barrier) that 8
+// warps cannot hide, so a long row's time grows with its chunk; and the
+// partial acc, 2 KB per head and split, is written and read back once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: expf and the final division
@@ -75,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_merge.cuh"
 
 namespace {
 
@@ -106,12 +115,11 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
 }
 
 // c_kv tile [kTile, r], k_rope tile [kTile, dr], p [kTile, kHeads],
-// corr [kHeads], l [kHeads] (f32), then the row's block ids [n] (int32)
-inline size_t simt_smem_bytes(int r, int dr, int n) {
+// corr [kHeads] (f32), then the split's block ids [pages] (int32)
+inline size_t simt_smem_bytes(int r, int dr, int pages) {
   return sizeof(float) *
-             ((size_t)kTile * (r + dr) + (size_t)kTile * kHeads +
-              2 * kHeads) +
-         sizeof(int32_t) * (size_t)n;
+             ((size_t)kTile * (r + dr) + (size_t)kTile * kHeads + kHeads) +
+         sizeof(int32_t) * (size_t)pages;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -121,8 +129,9 @@ paged_mla_simt_kernel(const float* __restrict__ q_eff,
                       const float* __restrict__ kr_pool,
                       const int32_t* __restrict__ tables,
                       const int32_t* __restrict__ lengths,
-                      float* __restrict__ out, int H, int r, int dr, int bs,
-                      int n, float scale) {
+                      float* __restrict__ part_m, float* __restrict__ part_l,
+                      float* __restrict__ part_acc, int H, int r, int dr,
+                      int bs, int n, int min_pages, float scale) {
   constexpr int kN = 4;                         // floats per 16 bytes
   // 16-byte chunks of one tile a thread loads: kTile rows of at most
   // kMaxR + kMaxDr elements
@@ -133,27 +142,41 @@ paged_mla_simt_kernel(const float* __restrict__ q_eff,
   float* kr_s = ckv_s + kTile * r;              // [kTile, dr]
   float* p_s = kr_s + kTile * dr;               // [kTile, kHeads]
   float* corr_s = p_s + kTile * kHeads;         // [kHeads]
-  float* l_s = corr_s + kHeads;                 // [kHeads]
-  int32_t* blk_s = reinterpret_cast<int32_t*>(l_s + kHeads);   // [n]
+  int32_t* blk_s = reinterpret_cast<int32_t*>(corr_s + kHeads);  // [pages]
 
-  const int b = blockIdx.y;
-  const int h0 = blockIdx.x * kHeads;
+  const int s = blockIdx.x, S = gridDim.x;
+  const int b = blockIdx.z;
+  const int h0 = blockIdx.y * kHeads;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int h = h0 + warp;
   const bool head_live = h < H;
   const int heads = min(kHeads, H - h0);
-  const int length = min(lengths[b], n * bs);   // positions past the table
-                                                // span do not exist
   const int nr4 = r / 4, nd4 = dr / 4;          // float4s per smem row
   const int nck = r / kN, nkr = dr / kN;        // 16-byte chunks per row
   const int row_chunks = nck + nkr;
+  split_merge::launch_dependents();             // the merge may launch
 
-  // the row's block ids below the length; tile rows start at zero, and a
+  // the row's pages [0, p_hi), cut into chunks of `chunk` pages: split s
+  // takes [page0, page_end), its valid positions [lo, hi)
+  const int length = min(lengths[b], n * bs);   // positions past the table
+                                                // span do not exist
+  const int p_hi = (length + bs - 1) / bs;
+  const int chunk = max((p_hi + S - 1) / S, min_pages);
+  const int page0 = s * chunk, lo = page0 * bs;
+  const int page_end = min(page0 + chunk, p_hi);
+  const int hi = min(length, page_end * bs);
+  if (lo >= hi) {                               // the empty state
+    if (threadIdx.x < heads) {
+      part_m[((int64_t)b * H + h0 + threadIdx.x) * S + s] = -INFINITY;
+      part_l[((int64_t)b * H + h0 + threadIdx.x) * S + s] = 0.f;
+    }
+    return;
+  }
+  // the chunk's block ids (at most `pages`); tile rows start at zero, and a
   // row past a tile's valid count only ever holds an earlier tile's data
-  const int nblk = (length + bs - 1) / bs;
-  for (int i = threadIdx.x; i < nblk; i += kThreads)
-    blk_s[i] = tables[(int64_t)b * n + i];
+  for (int i = threadIdx.x; i < page_end - page0; i += kThreads)
+    blk_s[i] = tables[(int64_t)b * n + page0 + i];
   for (int i = threadIdx.x; i < kTile * (r + dr); i += kThreads)
     ckv_s[i] = 0.f;
   __syncthreads();
@@ -169,7 +192,7 @@ paged_mla_simt_kernel(const float* __restrict__ q_eff,
         const int t = i / row_chunks;
         const int c = i - t * row_chunks;
         const int p = p0 + t;
-        const int64_t row = (int64_t)blk_s[p / bs] * bs + p % bs;
+        const int64_t row = (int64_t)blk_s[p / bs - page0] * bs + p % bs;
         buf[k] = c < nck ? load16(ckv_pool + row * r + c * kN)
                          : load16(kr_pool + row * dr + (c - nck) * kN);
       }
@@ -213,13 +236,13 @@ paged_mla_simt_kernel(const float* __restrict__ q_eff,
   float m = -INFINITY, l = 0.f;                 // head h's softmax state
 
   uint4 pre[kChunks];
-  fetch(0, min(kTile, length), pre);
-  for (int p0 = 0; p0 < length; p0 += kTile) {
-    const int nt = min(kTile, length - p0);     // valid positions here
+  fetch(lo, min(kTile, hi - lo), pre);
+  for (int p0 = lo; p0 < hi; p0 += kTile) {
+    const int nt = min(kTile, hi - p0);         // valid positions here
     stash(nt, pre);
     __syncthreads();
-    if (p0 + kTile < length)
-      fetch(p0 + kTile, min(kTile, length - p0 - kTile), pre);
+    if (p0 + kTile < hi)
+      fetch(p0 + kTile, min(kTile, hi - p0 - kTile), pre);
 
     // scores of head h at the tile's positions (rows >= nt hold zeros or
     // an earlier tile's values and are masked below); online softmax
@@ -287,15 +310,18 @@ paged_mla_simt_kernel(const float* __restrict__ q_eff,
     __syncthreads();
   }
 
-  if (lane == 0) l_s[warp] = l;
-  __syncthreads();
+  // the split's partial state: head h's (m, l), and the unnormalised acc
+  // of the block's heads
+  if (head_live && lane == 0) {
+    part_m[((int64_t)b * H + h) * S + s] = m;
+    part_l[((int64_t)b * H + h) * S + s] = l;
+  }
   if (owns) {
 #pragma unroll
     for (int k = 0; k < kHeads; ++k) {
       if (k >= heads) break;
-      const float den = fmaxf(l_s[k], 1e-30f);
-      reinterpret_cast<float2*>(out + ((int64_t)b * H + h0 + k) * r)[c2] =
-          make_float2(acc[k].x / den, acc[k].y / den);
+      reinterpret_cast<float2*>(
+          part_acc + (((int64_t)b * H + h0 + k) * S + s) * r)[c2] = acc[k];
     }
   }
 }
@@ -308,7 +334,7 @@ constexpr int kMWarps = 8;
 constexpr int kMThreads = 32 * kMWarps;
 constexpr int kMHeads = 16;               // the mma's M: heads per block
 constexpr int kMTile = 32;                // positions per tile
-constexpr int kStages = 4;                // tiles in flight (cp.async ring)
+constexpr int kStages = 2;                // tiles in the cp.async ring
 constexpr int kMaxPairs = kMaxR / 16 / kMWarps;   // 16-column pairs a warp
 constexpr int kPad = 8;                   // bf16 per smem row, vs conflicts
 constexpr int kSStride = kMTile + 4;      // f32 scores row
@@ -361,18 +387,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // q [16, r + dr + pad], kStages tiles of c_kv [32, r + pad] and k_rope
 // [32, dr + pad] (bf16), two halves of the scores [16, kSStride] (f32),
-// p [16, kPStride]
-// (bf16), corr and l [16] (f32), the pool row of each of the n * bs
-// positions a table spans (int32)
-inline size_t mma_smem_bytes(int r, int dr, int n, int bs) {
+// p [16, kPStride] (bf16), corr [16] (f32), the pool row of each of the
+// pages * bs positions a split spans (int32)
+inline size_t mma_smem_bytes(int r, int dr, int pages, int bs) {
   return 2 * ((size_t)kMHeads * (r + dr + kPad) +
               kStages * (size_t)kMTile * (r + kPad + dr + kPad) +
               (size_t)kMHeads * kPStride) +
-         4 * (2 * (size_t)kMHeads * kSStride + 2 * kMHeads) +
-         4 * (size_t)n * bs;
+         4 * (2 * (size_t)kMHeads * kSStride + kMHeads) +
+         4 * (size_t)pages * bs;
 }
 
-// One block: 16 heads of one row, 8 warps.  Per 32-position tile, loaded
+// One block: 16 heads of one split of one row, 8 warps.  Per 32-position
+// tile of the split's valid positions, loaded
 // by cp.async into a ring of kStages buffers, kStages - 1 tiles ahead of
 // the one in use:
 //   scores  S [16 heads, 32 pos] = [q_eff | q_rope] . [c_kv | k_rope]^T,
@@ -389,8 +415,9 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
                      const __nv_bfloat16* __restrict__ kr_pool,
                      const int32_t* __restrict__ tables,
                      const int32_t* __restrict__ lengths,
-                     __nv_bfloat16* __restrict__ out, int H, int r, int dr,
-                     int bs, int n, float scale) {
+                     float* __restrict__ part_m, float* __restrict__ part_l,
+                     float* __restrict__ part_acc, int H, int r, int dr,
+                     int bs, int n, int min_pages, float scale) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rq = r + dr + kPad, rc = r + kPad, rk = dr + kPad;
@@ -400,16 +427,38 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
   bf16* p_s = k_s + kStages * kMTile * rk;           // [16, kPStride]
   float* s_s = reinterpret_cast<float*>(p_s + kMHeads * kPStride);
   float* corr_s = s_s + 2 * kMHeads * kSStride;            // [16]
-  float* l_s = corr_s + kMHeads;                           // [16]
-  int32_t* row_s = reinterpret_cast<int32_t*>(l_s + kMHeads);   // [n*bs]
-
-  const int b = blockIdx.y;
-  const int h0 = blockIdx.x * kMHeads;
+  int32_t* row_s = reinterpret_cast<int32_t*>(corr_s + kMHeads);
+                                                     // [pages * bs]
+  const int s = blockIdx.x, S = gridDim.x;
+  const int b = blockIdx.z;
+  const int h0 = blockIdx.y * kMHeads;
   const int heads = min(kMHeads, H - h0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
-  const int length = min(lengths[b], n * bs);
   const int nr8 = r / 8, nd8 = dr / 8;      // 16-byte chunks per row
+  split_merge::launch_dependents();         // the merge may launch
+
+  // the row's pages [0, p_hi), cut into chunks of `chunk` pages: split s
+  // takes positions [lo, span), its valid ones [lo, hi)
+  const int length = min(lengths[b], n * bs);
+  const int p_hi = (length + bs - 1) / bs;
+  const int chunk = max((p_hi + S - 1) / S, min_pages);
+  const int page0 = s * chunk, lo = page0 * bs;
+  const int span = min(page0 + chunk, p_hi) * bs;
+  const int hi = min(length, span);
+  if (lo >= hi) {                           // the empty state
+    if (tid < heads) {
+      part_m[((int64_t)b * H + h0 + tid) * S + s] = -INFINITY;
+      part_l[((int64_t)b * H + h0 + tid) * S + s] = 0.f;
+    }
+    return;
+  }
+  // the pool row of every position the chunk's pages hold, once (no
+  // division per load; at most `pages` pages); a row past the length is
+  // never dereferenced
+  for (int p = lo + tid; p < span; p += kMThreads)
+    row_s[p - lo] = (int32_t)((uint32_t)tables[(int64_t)b * n + p / bs] *
+                                  (uint32_t)bs + (uint32_t)(p % bs));
 
   // the block's queries, [q_eff | q_rope] per head; rows past H are zero
   for (int i = tid; i < kMHeads * (nr8 + nd8); i += kMThreads) {
@@ -422,9 +471,6 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
     }
     *reinterpret_cast<uint4*>(q_s + row * rq + c * 8) = v;
   }
-  // the pool row of every valid position, once (no division per load)
-  for (int p = tid; p < length; p += kMThreads)
-    row_s[p] = tables[(int64_t)b * n + p / bs] * bs + p % bs;
   __syncthreads();
 
   // a tile's copies: thread tid takes 16-byte chunk tid % nr8 of rows
@@ -432,19 +478,19 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
   const int c_rows = kMThreads / nr8, c_t0 = tid / nr8, c_c = tid % nr8;
   const int k_rows = kMThreads / nd8, k_t0 = tid / nd8, k_c = tid % nd8;
   auto issue = [&](int tile, int buf) {
-    const int p0 = tile * kMTile;
+    const int p0 = tile * kMTile;             // from lo
     bf16* cb = c_s + buf * kMTile * rc;
     bf16* kb = k_s + buf * kMTile * rk;
     if (c_t0 < c_rows)
       for (int t = c_t0; t < kMTile; t += c_rows) {
-        const bool valid = p0 + t < length;  // else zero-filled, not read
+        const bool valid = lo + p0 + t < hi;  // else zero-filled, not read
         const int64_t row = valid ? row_s[p0 + t] : 0;
         cp_async16(cb + t * rc + c_c * 8, ckv_pool + row * r + c_c * 8,
                    valid);
       }
     if (k_t0 < k_rows)
       for (int t = k_t0; t < kMTile; t += k_rows) {
-        const bool valid = p0 + t < length;
+        const bool valid = lo + p0 + t < hi;
         const int64_t row = valid ? row_s[p0 + t] : 0;
         cp_async16(kb + t * rk + k_c * 8, kr_pool + row * dr + k_c * 8,
                    valid);
@@ -467,7 +513,7 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
   // one commit group per tile slot, empty past the last tile, so that
   // "all but the newest kStages - 1 groups done" always means "this tile
   // has landed"
-  const int ntiles = (length + kMTile - 1) / kMTile;
+  const int ntiles = (hi - lo + kMTile - 1) / kMTile;
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < ntiles) issue(t, t);
     cp_async_commit();
@@ -515,13 +561,13 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
     // online softmax: 16 threads per head, 2 positions each; positions
     // past the length score -inf
     {
-      const int pos = tile * kMTile + sq;
-      const float2 lo = *reinterpret_cast<const float2*>(
+      const int pos = lo + tile * kMTile + sq;
+      const float2 s0 = *reinterpret_cast<const float2*>(
           s_s + sh * kSStride + sq);
-      const float2 hi = *reinterpret_cast<const float2*>(
+      const float2 s1 = *reinterpret_cast<const float2*>(
           s_s + (kMHeads + sh) * kSStride + sq);
-      const float sx = pos < length ? (lo.x + hi.x) * scale : -INFINITY;
-      const float sy = pos + 1 < length ? (lo.y + hi.y) * scale : -INFINITY;
+      const float sx = pos < hi ? (s0.x + s1.x) * scale : -INFINITY;
+      const float sy = pos + 1 < hi ? (s0.y + s1.y) * scale : -INFINITY;
       float mx = fmaxf(sx, sy);
 #pragma unroll
       for (int off = 1; off < 16; off <<= 1)
@@ -572,9 +618,14 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
     __syncthreads();              // buf is free for tile + kStages
   }
 
-  if ((tid & 15) == 0) l_s[sh] = l;
-  __syncthreads();
-  const float den_lo = fmaxf(l_s[g], 1e-30f), den_hi = fmaxf(l_s[g + 8], 1e-30f);
+  // the split's partial state: (m, l) of head sh, and the unnormalised
+  // acc of heads g and g + 8
+  if ((tid & 15) == 0 && sh < heads) {
+    part_m[((int64_t)b * H + h0 + sh) * S + s] = m;
+    part_l[((int64_t)b * H + h0 + sh) * S + s] = l;
+  }
+  float* acc_lo = part_acc + (((int64_t)b * H + h0 + g) * S + s) * r;
+  float* acc_hi = part_acc + (((int64_t)b * H + h0 + g + 8) * S + s) * r;
 #pragma unroll
   for (int i = 0; i < kMaxPairs; ++i) {
     const int q = warp + kMWarps * i;
@@ -582,16 +633,12 @@ paged_mla_mma_kernel(const __nv_bfloat16* __restrict__ q_eff,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = q * 16 + j * 8 + 2 * tig;
-      if (g < heads) {
-        bf16* dst = out + ((int64_t)b * H + h0 + g) * r + col;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-            acc[i][j][0] / den_lo, acc[i][j][1] / den_lo);
-      }
-      if (g + 8 < heads) {
-        bf16* dst = out + ((int64_t)b * H + h0 + g + 8) * r + col;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-            acc[i][j][2] / den_hi, acc[i][j][3] / den_hi);
-      }
+      if (g < heads)
+        *reinterpret_cast<float2*>(acc_lo + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (g + 8 < heads)
+        *reinterpret_cast<float2*>(acc_hi + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
     }
   }
 }
@@ -613,66 +660,100 @@ int set_smem(K kernel, size_t smem) {
 
 int launch_mma(const void* q_eff, const void* q_rope, const void* ckv_pool,
                const void* kr_pool, const void* tables, const void* lengths,
-               void* out, int B, int H, int r, int dr, int bs, int n,
-               float scale, cudaStream_t stream) {
+               float* part_m, float* part_l, float* part_acc, int B, int H,
+               int r, int dr, int bs, int n, int splits, int pages,
+               int min_pages, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes(r, dr, n, bs);
+  const size_t smem = mma_smem_bytes(r, dr, pages, bs);
   if (int err = set_smem(paged_mla_mma_kernel, smem)) return err;
-  const dim3 grid((H + kMHeads - 1) / kMHeads, B);
+  const dim3 grid(splits, (H + kMHeads - 1) / kMHeads, B);
   paged_mla_mma_kernel<<<grid, kMThreads, smem, stream>>>(
       static_cast<const bf16*>(q_eff), static_cast<const bf16*>(q_rope),
       static_cast<const bf16*>(ckv_pool), static_cast<const bf16*>(kr_pool),
       static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(lengths), static_cast<bf16*>(out), H, r,
-      dr, bs, n, scale);
+      static_cast<const int32_t*>(lengths), part_m, part_l, part_acc, H, r,
+      dr, bs, n, min_pages, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_simt(const void* q_eff, const void* q_rope, const void* ckv_pool,
                 const void* kr_pool, const void* tables, const void* lengths,
-                void* out, int B, int H, int r, int dr, int bs, int n,
-                float scale, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(r, dr, n);
+                float* part_m, float* part_l, float* part_acc, int B, int H,
+                int r, int dr, int bs, int n, int splits, int pages,
+                int min_pages, float scale, cudaStream_t stream) {
+  const size_t smem = simt_smem_bytes(r, dr, pages);
   if (int err = set_smem(paged_mla_simt_kernel, smem)) return err;
-  const dim3 grid((H + kHeads - 1) / kHeads, B);
+  const dim3 grid(splits, (H + kHeads - 1) / kHeads, B);
   paged_mla_simt_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q_eff), static_cast<const float*>(q_rope),
       static_cast<const float*>(ckv_pool), static_cast<const float*>(kr_pool),
       static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(lengths), static_cast<float*>(out), H, r,
-      dr, bs, n, scale);
+      static_cast<const int32_t*>(lengths), part_m, part_l, part_acc, H, r,
+      dr, bs, n, min_pages, scale);
   return (int)cudaGetLastError();
 }
+
+// names B8's instance of the merge kernel
+struct paged_mla_attention_merge {};
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs (bytes) for a table of n blocks of bs
-// positions per row, or 0 if the kernel does not take the shape; dtype
-// 0 = float32, 1 = bfloat16.
-size_t paged_mla_attention_smem_bytes(int r, int dr, int n, int bs,
+// Shared memory one block of the split kernel needs (bytes) for splits of
+// `pages` table pages of bs positions, or 0 if the kernel does not take
+// the shape; dtype 0 = float32, 1 = bfloat16.
+size_t paged_mla_attention_smem_bytes(int r, int dr, int pages, int bs,
                                       int dtype) {
-  if (!supported(r, dr, dtype)) return 0;
-  return dtype == 1 ? mma_smem_bytes(r, dr, n, bs)
-                    : simt_smem_bytes(r, dr, n);
+  if (!supported(r, dr, dtype) || pages < 1 || bs < 1) return 0;
+  return dtype == 1 ? mma_smem_bytes(r, dr, pages, bs)
+                    : simt_smem_bytes(r, dr, pages);
 }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).
+// The split kernel on `stream`: grid (splits, head blocks, B), partial
+// states into part_m, part_l [B, H, splits] and part_acc [B, H, splits, r]
+// (f32).  Returns cudaGetLastError() after the launch (0 on success).
 int paged_mla_attention_launch(const void* q_eff, const void* q_rope,
                                const void* ckv_pool, const void* kr_pool,
                                const void* tables, const void* lengths,
-                               void* out, int B, int H, int r, int dr, int bs,
-                               int n, float scale, int dtype, void* stream) {
+                               void* part_m, void* part_l, void* part_acc,
+                               int B, int H, int r, int dr, int bs, int n,
+                               int splits, int pages, int min_pages,
+                               float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || bs <= 0 || n <= 0 || !supported(r, dr, dtype))
+  if (B <= 0 || H <= 0 || bs <= 0 || n <= 0 || splits <= 0 || pages <= 0 ||
+      min_pages <= 0 || !supported(r, dr, dtype))
     return (int)cudaErrorInvalidValue;
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
   if (dtype == 1)
-    return launch_mma(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths, out,
-                      B, H, r, dr, bs, n, scale, s);
-  return launch_simt(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths, out,
-                     B, H, r, dr, bs, n, scale, s);
+    return launch_mma(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths, pm,
+                      pl, pa, B, H, r, dr, bs, n, splits, pages, min_pages,
+                      scale, s);
+  return launch_simt(q_eff, q_rope, ckv_pool, kr_pool, tables, lengths, pm,
+                     pl, pa, B, H, r, dr, bs, n, splits, pages, min_pages,
+                     scale, s);
+}
+
+// The merge (split_merge.cuh) on `stream`: rows = B * H output rows of
+// width r from the split kernel's partial states, into out [rows, r] in
+// the dtype (0 = float32, 1 = bfloat16).  Returns cudaGetLastError().
+int paged_mla_attention_merge_launch(const void* part_m, const void* part_l,
+                                     const void* part_acc, void* out,
+                                     int rows, int splits, int width,
+                                     int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* pl = static_cast<const float*>(part_l);
+  const float* pa = static_cast<const float*>(part_acc);
+  if (dtype == 0)
+    return split_merge::launch<float, paged_mla_attention_merge>(
+        pm, pl, pa, static_cast<float*>(out), rows, splits, width, s);
+  if (dtype == 1)
+    return split_merge::launch<__nv_bfloat16, paged_mla_attention_merge>(
+        pm, pl, pa, static_cast<__nv_bfloat16*>(out), rows, splits, width, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

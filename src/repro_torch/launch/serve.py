@@ -150,7 +150,9 @@ def run(cfg, args: argparse.Namespace):
 
     engine = ServeEngine(cfg, params, ecfg)
     print(f"slot-state plan: {engine.plan.describe()}")
-    launches0, mla0 = pa_ops.LAUNCHES, pa_ops.MLA_LAUNCHES
+    counts = ("LAUNCHES", "MERGE_LAUNCHES", "MLA_LAUNCHES",
+              "MLA_MERGE_LAUNCHES")
+    before = {c: getattr(pa_ops, c) for c in counts}
     results = engine.run(requests)
     if device.type == "cuda":
         import torch
@@ -158,10 +160,12 @@ def run(cfg, args: argparse.Namespace):
     metrics = engine.metrics
 
     print(metrics.report())
-    print(f"paged_attention kernel launches: {pa_ops.LAUNCHES - launches0}, "
-          f"paged_mla_attention kernel launches: "
-          f"{pa_ops.MLA_LAUNCHES - mla0} (paged_kernel={engine.paged_kernel},"
-          f" {metrics.decode_steps} decode steps x {cfg.num_layers} layers)")
+    n = {c: getattr(pa_ops, c) - before[c] for c in counts}
+    print(f"paged_attention kernel launches: {n['LAUNCHES']} (merges "
+          f"{n['MERGE_LAUNCHES']}), paged_mla_attention kernel launches: "
+          f"{n['MLA_LAUNCHES']} (merges {n['MLA_MERGE_LAUNCHES']}) "
+          f"(paged_kernel={engine.paged_kernel}, {metrics.decode_steps} "
+          f"decode steps x {cfg.num_layers} layers)")
     shown = sorted(results)[:2]
     print("sample outputs:", [results[i][:8] for i in shown])
     return results, metrics

@@ -102,11 +102,26 @@ def rms_norm(p, x, eps):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+_ROPE_FREQS = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """[head_dim / 2] f32 inverse frequencies ``1 / theta^(2i / head_dim)``,
+    computed once per (head_dim, theta, device) on the host and kept: the
+    decode step calls this twice per layer, and building the tensor there
+    would be a blocking host-to-device copy each time.  The power is taken
+    in f64 and rounded to f32, then inverted in f32, which is what the
+    reference's ``theta ** exps`` gives on the CPU, bit for bit."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (head_dim, float(theta), dev)
+    inv = _ROPE_FREQS.get(key)
+    if inv is None:
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        base = torch.tensor(theta, dtype=torch.float32).double()
+        power = torch.pow(base, exps.double()).float()
+        with torch.inference_mode(False):   # usable outside serving too
+            inv = _ROPE_FREQS[key] = (1.0 / power).to(dev)
+    return inv
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float

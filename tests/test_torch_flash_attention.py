@@ -235,3 +235,87 @@ def test_cuda_kernel_matches_ref(case, dtype):
     np.testing.assert_allclose(got[:, seen].float().cpu().numpy(),
                                want[:, seen].float().cpu().numpy(),
                                **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path of the public op (ROADMAP C5): pad-and-slice and copies
+# around a strict kernel, checked here with a stand-in for it
+# ---------------------------------------------------------------------------
+
+
+class _StrictKernel:
+    """Takes only what ``flash_attention_kernel`` takes (contiguous, on 16
+    bytes, bf16 D and Dv in multiples of 16, at most 256) and computes the
+    plain version's arithmetic at the ``scale`` it is given; records the
+    (D, Dv, scale) of each call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, q, k, v, *, causal, window, softcap, scale):
+        for t in (q, k, v):
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        D, Dv = q.shape[3], v.shape[3]
+        assert max(D, Dv) <= ops.MAX_HEAD_DIM
+        if q.dtype == torch.bfloat16:
+            assert D % 16 == 0 and Dv % 16 == 0
+        self.calls.append((D, Dv, scale))
+        B, Tq, Hq, _ = q.shape
+        Tk, Hkv = k.shape[1], k.shape[2]
+        kf = k.repeat_interleave(Hq // Hkv, dim=2)
+        vf = v.repeat_interleave(Hq // Hkv, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = ref.attention_mask(Tq, Tk, causal=causal, window=window)
+        p = torch.softmax(torch.where(mask, s, ref.NEG_INF), -1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), vf)
+        return o.to(q.dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_forward_pads_d_72_dv_40_and_keeps_the_scale(dtype):
+    """D 72 / Dv 40: bf16 goes to the kernel as 80 / 48 (zero columns),
+    f32 as it is; the scale stays 1/sqrt(72); the output, sliced back to
+    Dv 40, matches the reference's ``flash_attention_ref``."""
+    arrays = _inputs(2, 96, 96, 4, 2, 72, 21, Dv=40)
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    kernel = _StrictKernel()
+    got = ops.kernel_forward(kernel, q, k, v, causal=True, softcap=50.0)
+    want = _jax_ref_heads(jq, jk, jv, causal=True, softcap=50.0)
+    padded = (80, 48) if dtype == "bfloat16" else (72, 40)
+    assert kernel.calls == [padded + (1.0 / np.sqrt(72),)]
+    assert tuple(got.shape) == (2, 96, 4, 40) and got.is_contiguous()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_kernel_forward_copies_a_view_off_16_bytes(name):
+    """A bf16 input that starts 2 bytes off 16 (contiguous, so
+    ``.contiguous()`` would hand it over as it is) reaches the kernel as an
+    aligned copy; the output matches the reference's ref."""
+    arrays = _inputs(1, 64, 64, 4, 2, 32, 22)
+    (jq, jk, jv), ts = _both(arrays, "bfloat16")
+    i = "qkv".index(name)
+    buf = torch.empty(ts[i].numel() + 1, dtype=torch.bfloat16)
+    ts[i] = buf[1:].view(ts[i].shape).copy_(ts[i])
+    assert ts[i].is_contiguous() and ts[i].data_ptr() % 16
+    kernel = _StrictKernel()
+    got = ops.kernel_forward(kernel, *ts, causal=True)
+    want = _jax_ref_heads(jq, jk, jv, causal=True)
+    assert kernel.calls == [(32, 32, 1.0 / np.sqrt(32))]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("D,Dv", [(264, 64), (64, 320)])
+def test_kernel_forward_states_the_cards_head_dim_limit(D, Dv):
+    q = torch.zeros(1, 8, 2, D)
+    v = torch.zeros(1, 8, 2, Dv)
+    kernel = _StrictKernel()
+    with pytest.raises(ValueError, match="card's kernels take D and Dv up "
+                                         "to 256"):
+        ops.kernel_forward(kernel, q, q, v)
+    assert kernel.calls == []

@@ -63,6 +63,28 @@ def test_rms_norm_rope_softcap():
                        torch.from_numpy(x))
 
 
+@pytest.mark.parametrize("head_dim,theta", [(256, 10000.0), (64, 10000.0)],
+                         ids=["gemma2-2b", "deepseek-v3-rope"])
+def test_rope_freqs_equal_the_reference_and_are_computed_once(
+        head_dim, theta, monkeypatch):
+    """gemma2-2b's head (256) and DeepSeek-V3's rope part (64): the f32
+    inverse frequencies equal the reference's bit for bit; a second call
+    hands back the kept tensor without computing it again (the decode step
+    asks twice per layer, and must not copy to the card each time)."""
+    L._ROPE_FREQS.pop((head_dim, theta, torch.device("cpu")), None)
+    first = L.rope_freqs(head_dim, theta)
+    want = np.asarray(JL.rope_freqs(head_dim, theta))
+    assert first.dtype == torch.float32 and first.shape == want.shape
+    np.testing.assert_array_equal(first.numpy(), want)
+
+    def no_recompute(*a, **k):
+        raise AssertionError("rope_freqs computed again")
+
+    monkeypatch.setattr(torch, "pow", no_recompute)
+    assert L.rope_freqs(head_dim, theta) is first
+    assert L.rope_freqs(head_dim, theta, device="cpu") is first
+
+
 @pytest.mark.parametrize("window,cap", [(None, None), (3, 50.0)])
 def test_gqa_attention_unchunked(window, cap):
     rng = np.random.default_rng(1)

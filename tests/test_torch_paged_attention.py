@@ -150,6 +150,55 @@ def test_rejects_multi_token():
         ops.paged_attention(*_torch(q2, kp, vp, tables, off))
 
 
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("n", [1, 21, 512])
+@pytest.mark.parametrize("B", [1, 8])
+def test_plan_splits_covers_every_page_once(B, n, bs):
+    """The split kernels' plan, for B7's grid (4 KV heads, 3 blocks an SM)
+    and B8's (8 head blocks, 2 an SM; 1 an SM for wide heads), and the
+    chunks a block cuts from its row's length on the card
+    (``split_ranges``): at least one split, within one wave of 132 SMs
+    unless the rows alone exceed it; at every length and window, every
+    live page of the row in exactly one chunk, no chunk wider than the
+    plan's ``pages`` (its table in shared memory), at least one chunk
+    live where the length lies within the table, and at least MIN_SPLIT_POSITIONS positions a live chunk but the
+    last."""
+    least = ops.min_split_pages(bs)
+    lengths = sorted({1, 2, bs, bs + 1, 33, 300, n * bs - 1, n * bs,
+                      n * bs + 5} - {0})
+    for heads, per_sm in ((4, 3), (8, 2), (64, 1)):
+        splits, pages = ops.plan_splits(B, heads, n, bs, 132, per_sm)
+        assert type(splits) is int and type(pages) is int
+        assert 1 <= splits <= ops.MAX_SPLITS and 1 <= pages <= n
+        assert B * heads * splits <= max(B * heads, per_sm * 132)
+        assert splits == 1 or n >= splits * least - least + 1
+        for L in lengths:
+            for window in (None, 1, 100, 4096):
+                first = max(0, L - window) if window else 0
+                live = set(range(first // bs, -(-min(L, n * bs) // bs)))
+                ranges = ops.split_ranges(L, n, bs, splits, window)
+                assert len(ranges) == splits
+                owned = [j for a, z in ranges for j in range(a, z)]
+                assert sorted(owned) == sorted(live), (L, window)
+                full = [z - a for a, z in ranges if a < z]
+                assert max(full, default=0) <= pages
+                assert full or L > n * bs       # a decode row has a page
+                assert all(w >= least for w in full[:-1])
+def test_plan_splits_takes_host_ints_only():
+    """A plan never reads the card: a tensor (even one on the CPU, even the
+    lengths) or a numpy integer is refused, and a count below 1 too."""
+    ok = ops.plan_splits(8, 4, 21, 16, 132, 3)
+    assert ok == (11, 2)
+    for i, bad in ((0, torch.tensor(8)), (2, torch.tensor(21)),
+                   (2, np.int64(21)), (4, 132.0), (5, True)):
+        args = [8, 4, 21, 16, 132, 3]
+        args[i] = bad
+        with pytest.raises(TypeError, match="host ints"):
+            ops.plan_splits(*args)
+    with pytest.raises(ValueError):
+        ops.plan_splits(8, 4, 0, 16, 132, 3)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never runs the plain version: a CPU tensor is an
     error there (only the public op dispatches CPU tensors to ref.py)."""

@@ -159,8 +159,9 @@ def test_gemm_check_rejects_a_dropped_k_tile(smoke, no_sync):
 
 
 def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None,
-                   block=None):
-    """The kernel's arithmetic on [B, T, H, D]; with ``pad_to``, K and V
+                   block=None, scale=None):
+    """The kernel's arithmetic on [B, T, H, D], the scores scaled by
+    ``scale`` (default 1/sqrt(D)); with ``pad_to``, K and V
     are padded with zero rows to a multiple of it and nothing masks them
     (the reference op's padding); with ``block``, each row sees every key
     in its ``block``-row block's key range (the loop bounds without the
@@ -174,7 +175,8 @@ def emulated_flash(q, k, v, *, causal, window, softcap, pad_to=None,
     G = Hq // Hkv
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (
+        1.0 / math.sqrt(D) if scale is None else scale)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     seen = fref.attention_mask(Tq, k.shape[1], causal=causal, window=window)
@@ -245,6 +247,51 @@ def test_flash_check_rejects_padded_keys(smoke, no_sync):
     with pytest.raises(AssertionError, match=r"\(d\) non-causal"):
         smoke.phase_flash_kernels(torch, stand_in, fref, CPU,
                                   cases=_flash_cases(smoke))
+
+
+def _strict(q, k, v, **kw):
+    """``emulated_flash`` behind the checks ``flash_attention_kernel``
+    makes: contiguous, on 16 bytes, bf16 D and Dv in multiples of 16."""
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("not contiguous on 16 bytes")
+    if q.dtype == torch.bfloat16 and (q.shape[3] % 16 or v.shape[3] % 16):
+        raise ValueError("bf16 D and Dv must be multiples of 16")
+    return emulated_flash(q, k, v, **kw)
+
+
+def _padding_stand_in(kernel):
+    ns = _flash_stand_in(kernel)
+    ns.MAX_HEAD_DIM = fops.MAX_HEAD_DIM
+    ns.flash_attention = lambda q, k, v, **kw: fops.kernel_forward(
+        ns.flash_attention_kernel, q, k, v, **kw)
+    return ns
+
+
+def test_padding_check_passes_the_public_op_around_a_strict_kernel(
+        smoke, no_sync, capsys):
+    """ROADMAP C5: D 72 / Dv 40 and inputs off 16 bytes through the public
+    op's pad-and-copy path, then D past 256 refused without a launch."""
+    stand_in = _padding_stand_in(_strict)
+    err, rel = smoke.phase_flash_padding(torch, stand_in, fref, CPU)
+    out = capsys.readouterr().out
+    print(out)
+    assert stand_in.LAUNCHES == len(smoke.FLASH_PAD_CASES)
+    assert 0 < err and 0 < rel <= smoke.BF16_ROW_RTOL_F32
+    assert "(g) D 72, Dv 40" in out and "off 16 bytes" in out
+    assert "raises ValueError" in out
+
+
+def test_padding_check_rejects_the_padded_scale(smoke, no_sync):
+    """A kernel that scales by 1/sqrt of the padded D (80, not 72) in
+    bf16."""
+    def padded_scale(q, k, v, **kw):
+        kw["scale"] = None
+        return _strict(q, k, v, **kw)
+
+    with pytest.raises(AssertionError, match=r"\(g\) D 72"):
+        smoke.phase_flash_padding(torch, _padding_stand_in(padded_scale),
+                                  fref, CPU)
 
 
 def _ops_path(smoke, monkeypatch, coded_tree_reduce=tops.coded_tree_reduce):
