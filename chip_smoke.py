@@ -11,9 +11,15 @@ The quickest proof that the port starts on the card.  Phases, in order
                 register/spill report and the card's name and power limit;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card.  First the public kernel ops' kernels (slice 4):
-                the tree sums (B3, B4) bit for bit at N 1/2/13/16 and
+                the tree sums (B3, B4) bit for bit at N 1 to 100 and
                 ragged widths, f32/bf16 in and out, with ±0, ±Inf and
-                subnormal columns; the GEMM (B6) at gemma2-2b's MLP
+                subnormal columns, each case on the kernel it must take
+                (the bulk-copy ring for rows and pointers on 16 bytes,
+                else the ragged kernel), at the ring's tile edges, at a
+                width that wraps every ring block's stages more than
+                twice and on views off 16 bytes; then both at N 8-100
+                in guard bytes (no stray write, every output and scratch
+                element written, bit for bit twice); the GEMM (B6) at gemma2-2b's MLP
                 up-projection, a DeepSeek-V3 decode projection, a
                 ragged shape in f32 and bf16 and the wgmma kernel's tile
                 edges (each case on its kernel: wgmma, mma or f32);
@@ -32,7 +38,8 @@ The quickest proof that the port starts on the card.  Phases, in order
                 also at the decode projection on its wgmma and its mma
                 path, and the ops path: the public ops driven once at those
                 shapes, their four counts (and B5's and B6's counts by
-                path) set to 0 just before and read just after.  Then paged attention (B7) in f32 and bf16
+                path, and B3's and B4's: the ring) set to 0 just
+                before and read just after.  Then paged attention (B7) in f32 and bf16
                 (bf16 per output row, relative to the row's RMS), at
                 gemma2-2b's shape
                 (Hkv 4, G 2, d 256, bs 16) and three more shapes, ragged
@@ -105,6 +112,11 @@ times only B7 and B8 (phase 2's serve, wide-table and long-context
 shapes, B7's length sweep) with the kernels of another checkout: a
 change to the paged decode kernels is compared with its parent in one
 run on one card (parent, change, change, parent).
+
+    python3 chip_smoke.py --tree-timings OTHER/src
+
+does the same for the tree sums: B3 (f32 rows, bf16 rows into f32) and
+B4 at 8 rows of a 256 MB bucket beside ``torch.sum`` and the bound.
 """
 
 import gc
@@ -783,11 +795,13 @@ def phase_mla_long_timing(torch, ops, ref, cfg):
 # ---------------------------------------------------------------------------
 
 # elements of a fill pattern on either side of every buffer a guarded call
-# of B7 or B8 touches, and the patterns: a NaN for the floats (read into a
-# product, it would reach the output), an out-of-range block id for the
-# int32 tables and lengths (dereferenced, it would fault)
+# of B7, B8, B3 or B4 touches, and the patterns: a NaN for the floats (read
+# into a product or a sum, it would reach the output), an out-of-range
+# block id for the int32 tables and lengths (dereferenced, it would
+# fault), a code of 90 for B4's int8 codes
 GUARD = 4096
-GUARD_BITS = {"float32": 0x7FC0BEEF, "bfloat16": 0x7FC1, "int32": 0x3FFFFFFF}
+GUARD_BITS = {"float32": 0x7FC0BEEF, "bfloat16": 0x7FC1, "int32": 0x3FFFFFFF,
+              "int8": 0x5A}
 # block-table columns past every row's length, holding GUARD_BITS's block
 # id (never dereferenced), so the plan also has splits past every row
 GUARD_EXTRA_PAGES = 64
@@ -795,7 +809,8 @@ GUARD_EXTRA_PAGES = 64
 
 def _bits(torch, t):
     """``t``'s elements as integers of its width (bitwise comparisons)."""
-    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+    return t.view({4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[t.element_size()])
 
 
 def _guarded(torch, t, copy=True):
@@ -920,6 +935,85 @@ def phase_guards(torch, ops, dev):
     return calls
 
 
+def _tree_guarded_run(torch, tops, kernel, inputs, label):
+    """``kernel(*inputs)`` (B3 or B4) twice on guarded copies of the inputs,
+    with its output and f32 scratch in guarded buffers (``tops._buffers``
+    patched), and once as it is.  Fails unless every guard and every input
+    is unchanged, every output element and every scratch element was
+    written, and the three outputs are equal bit for bit (twice the same:
+    no race showed; as unguarded: nothing was read past an input).
+    Returns 1 when the call took an f32 scratch, else 0."""
+    made, real = [], tops._buffers
+
+    def buffers(n, cols, out_dtype, device):
+        out, scratch = real(n, cols, out_dtype, device)
+        got = [_guarded(torch, t, copy=False) for t in (out, scratch)
+               if t is not None]
+        made.append(got)
+        return got[0][1], (got[1][1] if len(got) > 1 else None)
+
+    want = kernel(*inputs)
+    guarded = [_guarded(torch, x) for x in inputs]
+    tops._buffers = buffers
+    try:
+        runs = [kernel(*(v for _, v in guarded)) for _ in range(2)]
+    finally:
+        tops._buffers = real
+    torch.cuda.synchronize()
+    fill = lambda t: GUARD_BITS[str(t.dtype)[6:]]
+    bad = [f"input {i}" for i, ((flat, v), x) in enumerate(zip(guarded,
+                                                                inputs))
+           if not _guards_hold(torch, flat, x.numel())
+           or not torch.equal(_bits(torch, v), _bits(torch, x))]
+    for k, got in enumerate(made):
+        for name, (flat, t) in zip(("output", "scratch"), got):
+            if not _guards_hold(torch, flat, t.numel()):
+                bad.append(f"run {k}: a write past the {name}")
+            if (_bits(torch, t) == fill(t)).any():
+                bad.append(f"run {k}: an element of the {name} not written")
+    if not all(torch.equal(_bits(torch, r), _bits(torch, want))
+               for r in runs):
+        bad.append("outputs differ between the guarded runs and the "
+                   "unguarded call")
+    if len(made) != 2:
+        bad.append(f"{len(made)} guarded buffer sets, want 2")
+    if bad:
+        raise AssertionError(f"{label}: {'; '.join(bad)}")
+    return len(made[0]) - 1
+
+
+def phase_tree_guards(torch, tops, dev):
+    """B3 and B4 through ``_tree_guarded_run`` on both paths (ring widths
+    and ragged ones) at 8 rows (one pass), 13 (a pass into scratch, one
+    out of it), 40 and 100 (scratch passes; at 100 one in place).  Returns
+    the number of guarded calls."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    calls = 0
+    for N in (8, 13, 40, 100):
+        for D in (4104, 700, 4097):
+            x32 = _tree_rows(torch, N, D, g, dev)
+            for dt in (torch.float32, torch.bfloat16):
+                x = x32.to(dt)
+                _tree_guarded_run(torch, tops,
+                                  lambda x: tops.tree_reduce_kernel(x), (x,),
+                                  f"B3 N={N} D={D} {str(dt)[6:]} "
+                                  f"({_tree_path(x)})")
+                calls += 3
+        for nb in (68, 37):
+            q, sc = _int8_wire(torch, tops, N, nb, g, dev)
+            _tree_guarded_run(torch, tops, tops.int8_tree_reduce_kernel,
+                              (q, sc), f"B4 N={N} nb={nb} "
+                              f"({_tree_path(q, sc)})")
+            calls += 3
+    print(f"  B3/B4 guard bytes: {calls} calls (ring and ragged paths, N 8, "
+          f"13, 40, 100; inputs, output and f32 scratch inside {GUARD} "
+          "elements of NaN, or code 90): no write outside its buffer, inputs "
+          "unchanged, every output and scratch element written, outputs "
+          "equal bit for bit twice and to the unguarded call")
+    return calls
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the codec decode-add kernels (B1, B2) against their plain versions
 # ---------------------------------------------------------------------------
@@ -1032,13 +1126,24 @@ def phase_codec_timing(torch, tops, tref, codecs, M):
 # first level the same fused multiply-add), so equal bit for bit.  N runs
 # every pass plan of the kernel: 1 and 2 pad to 2 (one level), 3 one pass
 # of 2 levels, 8 one pass of 3 (the timed count), 13 and 16 a pass of 3
-# then 1, 20 then 2, 40 then 3, 100 then 3 in place and 1.  D = 700 and
-# 300,004 take the vector path, 1, 4097 and 300,001 the scalar one; the
-# 300,00x columns outnumber a pass's threads, so its grid-stride loop goes
-# round more than once (as does B4's at N = 100, nb = 1100).
+# then 1, 20 then 2, 40 then 3, 100 then 3 in place and 1.  Each case must
+# take its path (``_tree_path``): f32 D = 700 and 300,004 take the ring
+# (bf16 the ragged kernel's vector loads), 1, 4097 and 300,001 the ragged
+# kernel's scalar loads; the 300,00x columns outnumber the ragged kernel's
+# threads, so its grid-stride loop goes round more than once.  B4's nb =
+# 1100 takes the ring, 1, 3 and 37 the ragged kernel.  The ring's tile is
+# 8 KB of a row (2048 f32, 4096 bf16, 8192 int8 columns): TREE_TILE_DS sit
+# one 16-byte step either side of both float tiles (multiples of 8, so
+# both dtypes take the ring), INT8_TILE_NBS 4 codec blocks either side of
+# B4's 64; at TREE_WRAP_NS phase 2 adds a width at which every block takes
+# more than twice its ring's stages in items (from the card's occupancy),
+# and views off 16 bytes, which must take the ragged kernel.
 TREE_NS = [1, 2, 3, 8, 13, 16, 20, 40, 100]
 TREE_DS = [1, 700, 4097, 300_001, 300_004]
+TREE_TILE_DS = [2040, 2048, 2056, 4088, 4096, 4104]
 INT8_TREE_NBS = [1, 3, 37, 1100]
+INT8_TILE_NBS = [60, 64, 68]
+TREE_WRAP_NS = [8, 100]
 # the timed shape: 8 micro-batches' rows of one 256 MB f32 gradient bucket
 # (the micro-batch accumulation the tree sum was written for)
 TREE_TIME_N, TREE_TIME_D = 8, 67_108_864
@@ -1153,19 +1258,19 @@ FLASH_PAD_CASES = [
          dtype="bfloat16", offset=1)]
 
 
-def _launch_once(torch, mod, count, fn, path=None):
+def _launch_once(torch, mod, count, fn, path=None, by_path="PATH_LAUNCHES"):
     """``fn()``, which must add one to ``mod.<count>``: the wrapper
     launched its kernel once; with ``path``, also one to
-    ``mod.PATH_LAUNCHES[path]`` and nothing to the other paths."""
+    ``mod.<by_path>[path]`` and nothing to the other paths."""
     before = getattr(mod, count)
-    paths = dict(mod.PATH_LAUNCHES) if path else None
+    paths = dict(getattr(mod, by_path)) if path else None
     out = fn()
     torch.cuda.synchronize()
     if getattr(mod, count) != before + 1:
         raise AssertionError(f"{count} rose by {getattr(mod, count) - before}"
                              ", not 1")
     if path:
-        rose = {k: v - paths[k] for k, v in mod.PATH_LAUNCHES.items()
+        rose = {k: v - paths[k] for k, v in getattr(mod, by_path).items()
                 if v != paths[k]}
         if rose != {path: 1}:
             raise AssertionError(f"launches by path rose by {rose}, not by "
@@ -1189,50 +1294,128 @@ def _tree_rows(torch, N, D, g, dev):
     return x
 
 
+def _tree_path(x, scale=None):
+    """The kernel a B3 (x [N, D] f32/bf16) or B4 (x = q [N, nb, 128] int8,
+    ``scale``) call must launch: the ring when every row starts on 16 bytes
+    (B4: whole groups of 4 codec blocks, so that the rows of scales do too)
+    and x (and scale) do, else the ragged kernel."""
+    if x.element_size() == 1:
+        rows = x.shape[1] % 4 == 0 and scale.data_ptr() % 16 == 0
+    else:
+        rows = x.shape[1] * x.element_size() % 16 == 0
+    return "ring" if rows and x.data_ptr() % 16 == 0 else "ragged"
+
+
+def _wrap_cols(torch, tops, dtype):
+    """A width of ``dtype`` rows at which every ring block takes 2 x stages
+    + 1 items of the first pass at 8 rows (3 levels): it goes round its
+    ring more than twice."""
+    sms, per_sm = tops.ring_occupancy(dtype, torch.float32, 3)
+    tile = tops.RING_SLICE_BYTES // torch.empty(0, dtype=dtype).element_size()
+    return tile * (2 * tops.ring_stages(3) + 1) * sms * per_sm
+
+
+def _b3_case(torch, tops, tref, x, label):
+    """B3 on x, f32 and bf16 out, each on the path it must take and equal
+    to ref.py bit for bit; returns the largest finite |diff|."""
+    worst = 0.0
+    for od in (torch.float32, torch.bfloat16):
+        got = _launch_once(torch, tops, "TREE_SUM_LAUNCHES",
+                           lambda: tops.tree_reduce_kernel(x, od),
+                           _tree_path(x), "TREE_SUM_LAUNCHES_BY_PATH")
+        want = tref.tree_reduce_ref(tref.pad_rows(x), od)
+        err = _finite_err(torch, got.float(), want.float())
+        worst = max(worst, err)
+        if not _same_bits(torch, got, want):
+            raise AssertionError(f"B3 {label} {str(x.dtype)[6:]} -> "
+                                 f"{str(od)[6:]} differs from ref.py (max "
+                                 f"finite |diff| {err:.3e})")
+    return worst
+
+
+def _b4_case(torch, tops, tref, q, sc, label):
+    """B4 on (q, sc) on the path it must take, equal to ref.py bit for bit;
+    returns the largest finite |diff|."""
+    got = _launch_once(torch, tops, "INT8_TREE_SUM_LAUNCHES",
+                       lambda: tops.int8_tree_reduce_kernel(q, sc),
+                       _tree_path(q, sc), "INT8_TREE_SUM_LAUNCHES_BY_PATH")
+    want = tref.int8_tree_reduce_ref(tref.pad_rows(q), tref.pad_rows(sc))
+    err = _finite_err(torch, got, want)
+    if not _same_bits(torch, got, want):
+        raise AssertionError(f"B4 {label} differs from ref.py (max |diff| "
+                             f"{err:.3e})")
+    return err
+
+
+def _int8_wire(torch, tops, N, nb, g, dev):
+    x = torch.randn(N, nb * 128, generator=g, device=dev) * torch.exp(
+        2 * torch.randn(N, nb * 128, generator=g, device=dev))
+    wire = tops.encode_rows(x, "int8")
+    return wire["q"], wire["scale"]
+
+
 def phase_tree_kernels(torch, tops, tref, dev):
     """B3 and B4 against ref.py, bit for bit: B3 at every N in ``TREE_NS``
-    and D in ``TREE_DS``, f32 and bf16 rows into f32 and bf16; B4 at every
-    N and nb in ``INT8_TREE_NBS``.  Each call must add one to its launch
-    count.  Returns the largest |kernel - ref| over finite outputs of each
-    (0 when they are equal)."""
+    and D in ``TREE_DS`` and ``TREE_TILE_DS``, f32 and bf16 rows into f32
+    and bf16; B4 at every N and nb in ``INT8_TREE_NBS`` and
+    ``INT8_TILE_NBS``; at ``TREE_WRAP_NS`` both at a width that wraps every
+    ring block more than twice, and on views off 16 bytes.  Each call must
+    add one to its launch count and to its path's (``_tree_path``).
+    Returns the largest |kernel - ref| over finite outputs of each (0 when
+    they are equal)."""
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     worst = {"tree_reduce": 0.0, "int8_tree_reduce": 0.0}
+    sms, per_sm = tops.ring_occupancy()
+    print(f"  ring grid: {sms} SMs x {per_sm} block(s) an SM, "
+          f"{tops.ring_stages(3)} stages of {tops.RING_SLICE_BYTES} B row "
+          "slices at 8 rows")
     for N in TREE_NS:
-        for D in TREE_DS:
+        for D in TREE_DS + TREE_TILE_DS:
             x32 = _tree_rows(torch, N, D, g, dev)
             for dt in (torch.float32, torch.bfloat16):
                 x = x32.to(dt)
-                for od in (torch.float32, torch.bfloat16):
-                    got = _launch_once(
-                        torch, tops, "TREE_SUM_LAUNCHES",
-                        lambda: tops.tree_reduce_kernel(x, od))
-                    want = tref.tree_reduce_ref(tref.pad_rows(x), od)
-                    err = _finite_err(torch, got.float(), want.float())
-                    worst["tree_reduce"] = max(worst["tree_reduce"], err)
-                    if not _same_bits(torch, got, want):
-                        raise AssertionError(
-                            f"B3 N={N} D={D} {str(dt)[6:]} -> {str(od)[6:]}"
-                            f" differs from ref.py (max finite |diff| "
-                            f"{err:.3e})")
-            print(f"  B3 N={N} D={D}: f32/bf16 -> f32/bf16 bit-identical to "
+                worst["tree_reduce"] = max(worst["tree_reduce"], _b3_case(
+                    torch, tops, tref, x, f"N={N} D={D}"))
+            print(f"  B3 N={N} D={D} (f32 {_tree_path(x32)}, bf16 "
+                  f"{_tree_path(x)}): f32/bf16 -> f32/bf16 bit-identical to "
                   f"ref.py (±0, ±Inf, subnormal columns)")
-        for nb in INT8_TREE_NBS:
-            x = torch.randn(N, nb * 128, generator=g, device=dev) * torch.exp(
-                2 * torch.randn(N, nb * 128, generator=g, device=dev))
-            wire = tops.encode_rows(x, "int8")
-            got = _launch_once(
-                torch, tops, "INT8_TREE_SUM_LAUNCHES",
-                lambda: tops.int8_tree_reduce_kernel(wire["q"],
-                                                     wire["scale"]))
-            want = tref.int8_tree_reduce_ref(tref.pad_rows(wire["q"]),
-                                             tref.pad_rows(wire["scale"]))
-            err = _finite_err(torch, got, want)
-            worst["int8_tree_reduce"] = max(worst["int8_tree_reduce"], err)
-            if not _same_bits(torch, got, want):
-                raise AssertionError(f"B4 N={N} nb={nb} differs from ref.py "
-                                     f"(max |diff| {err:.3e})")
-        print(f"  B4 N={N} nb={INT8_TREE_NBS}: bit-identical to ref.py")
+        for nb in INT8_TREE_NBS + INT8_TILE_NBS:
+            q, sc = _int8_wire(torch, tops, N, nb, g, dev)
+            worst["int8_tree_reduce"] = max(
+                worst["int8_tree_reduce"],
+                _b4_case(torch, tops, tref, q, sc, f"N={N} nb={nb}"))
+        print(f"  B4 N={N} nb={INT8_TREE_NBS + INT8_TILE_NBS}: bit-identical "
+              f"to ref.py")
+    for N in TREE_WRAP_NS:
+        D = _wrap_cols(torch, tops, torch.bfloat16)
+        x32 = _tree_rows(torch, N, D, g, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            worst["tree_reduce"] = max(worst["tree_reduce"], _b3_case(
+                torch, tops, tref, x, f"N={N} D={D} (ring wrap)"))
+            off = _off16(x[:, :2048].contiguous(), 1)
+            worst["tree_reduce"] = max(worst["tree_reduce"], _b3_case(
+                torch, tops, tref, off, f"N={N} D=2048 off 16 bytes"))
+        del x32, x
+        nb = _wrap_cols(torch, tops, torch.int8) // 128
+        q, sc = _int8_wire(torch, tops, N, nb, g, dev)
+        worst["int8_tree_reduce"] = max(
+            worst["int8_tree_reduce"],
+            _b4_case(torch, tops, tref, q, sc, f"N={N} nb={nb} (ring wrap)"))
+        q64, sc64 = q[:, :64].contiguous(), sc[:, :64].contiguous()
+        for qq, ss, what in ((_off16(q64, 8), sc64, "q"),
+                             (q64, _off16(sc64, 1), "scale")):
+            worst["int8_tree_reduce"] = max(
+                worst["int8_tree_reduce"],
+                _b4_case(torch, tops, tref, qq, ss,
+                         f"N={N} nb=64 {what} off 16 bytes"))
+        del q, sc
+        print(f"  B3 N={N} D={D} and B4 nb={nb} (every ring block past twice "
+              f"its stages), and views off 16 bytes (ragged): bit-identical "
+              f"to ref.py")
+    print(f"  launches by path so far: B3 {tops.TREE_SUM_LAUNCHES_BY_PATH}, "
+          f"B4 {tops.INT8_TREE_SUM_LAUNCHES_BY_PATH}")
     return worst
 
 
@@ -1283,6 +1466,12 @@ def phase_tree_timing(torch, tops, tref):
     two = _time_ms(torch, lambda i: (q * sc).sum(0), 3, reps=3)["graph"]
     res["int8"]["two_call_ms"] = two
     print(f"  B4 two-call yardstick (q * scale).sum(0): {two:.4f} ms")
+    # what this card reads the f32 rows at with nothing to write: the
+    # whole stack summed to one number
+    read = _time_ms(torch, lambda i: torch.sum(x), 3, reps=3)["graph"]
+    res["f32"]["read_only_ms"] = read
+    print(f"  B3 read-only yardstick torch.sum(x) over the {N * D * 4} B of "
+          f"f32 rows: {read:.4f} ms ({N * D * 4 / read / 1e9:.4g} TB/s)")
     return res
 
 
@@ -1633,8 +1822,8 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     versions on the same rows and wires bit for bit (and ``tree_reduce``
     also to an f64 sum: f32 rounding, 8 adds of at most |x| each), the
     rest to finite values of the right shape; the GEMM and the attention
-    must each have launched their wgmma kernel once.  Returns the counts
-    and the two ops' counts by path."""
+    must each have launched their wgmma kernel once, the three sums the
+    ring kernels.  Returns the counts and the ops' counts by path."""
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     N, D = TREE_TIME_N, TREE_TIME_D
@@ -1647,8 +1836,11 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
     qkv = [t.requires_grad_() for t in _flash_inputs(torch, fc, g, dev)]
     tops.TREE_SUM_LAUNCHES = tops.INT8_TREE_SUM_LAUNCHES = 0
     gops.LAUNCHES = fops.LAUNCHES = 0
-    for mod in (gops, fops):
-        mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
+    by_path = [gops.PATH_LAUNCHES, fops.PATH_LAUNCHES,
+               tops.TREE_SUM_LAUNCHES_BY_PATH,
+               tops.INT8_TREE_SUM_LAUNCHES_BY_PATH]
+    for launches in by_path:
+        launches.update(dict.fromkeys(launches, 0))
     s = tops.tree_reduce(x)
     coded = {c: tops.coded_tree_reduce(w, c) for c, w in wires.items()}
     mm = gops.gemm(a, b)
@@ -1664,11 +1856,15 @@ def phase_kernel_ops(torch, tops, tref, gops, fops, dev):
         raise AssertionError(f"kernel launches on the ops path {counts}, "
                              f"want {want}")
     paths = {"gemm": dict(gops.PATH_LAUNCHES),
-             "flash_attention": dict(fops.PATH_LAUNCHES)}
-    for name, by_path in paths.items():
-        if {k: v for k, v in by_path.items() if v} != {"wgmma": 1}:
+             "flash_attention": dict(fops.PATH_LAUNCHES),
+             "tree_reduce": dict(tops.TREE_SUM_LAUNCHES_BY_PATH),
+             "int8_tree_reduce": dict(tops.INT8_TREE_SUM_LAUNCHES_BY_PATH)}
+    want_paths = {"gemm": {"wgmma": 1}, "flash_attention": {"wgmma": 1},
+                  "tree_reduce": {"ring": 2}, "int8_tree_reduce": {"ring": 1}}
+    for name, launched in paths.items():
+        if {k: v for k, v in launched.items() if v} != want_paths[name]:
             raise AssertionError(f"{name} on the ops path launched "
-                                 f"{by_path}, not the wgmma kernel once")
+                                 f"{launched}, not {want_paths[name]}")
     plain = {"tree_reduce": (s, tref.tree_reduce_ref(tref.pad_rows(x))),
              "coded_tree_reduce bf16": (coded["bf16"], tref.tree_reduce_ref(
                  tref.pad_rows(wires["bf16"]["x"]), torch.float32)),
@@ -2143,7 +2339,13 @@ def _ptxas_summary(log: str):
             ops_k = re.search(r"((?:int8_)?tree_pass_kernel|gemm_[a-z0-9]+"
                               r"_kernel|flash_[a-z]+_kernel)(?:I(f|t)(f|t))?",
                               m.group(1))
-            if merge is not None:      # B7's and B8's merge: <dtype>
+            ring = re.search(r"ring_pass_kernelI([fta])([ft])Li(\d)ELb([01])",
+                             m.group(1))
+            if ring is not None:       # B3/B4's ring: <in->out,levels>
+                io = {"f": "f32", "t": "bf16", "a": "int8"}
+                label = (f" ring_pass_kernel<{io[ring.group(1)]}->"
+                         f"{io[ring.group(2)]},{ring.group(3)}>")
+            elif merge is not None:    # B7's and B8's merge: <dtype>
                 io = "f32" if merge.group(1) == "f" else "bf16"
                 label = f" merge_kernel<{io}>"
             elif mla is not None:      # B8: f32 (simt) and bf16 (mma)
@@ -2195,21 +2397,39 @@ def decode_timings(torch) -> int:
     return 0
 
 
+def tree_timings(torch) -> int:
+    """``--tree-timings SRC``: B3 (f32 rows, and bf16 rows into f32) and
+    B4 at the timed shape beside ``torch.sum`` and the bound
+    (``phase_tree_timing``), with the kernels of the checkout whose
+    ``src/`` is first on the path.  Only the kernel wrappers, ``encode_rows``
+    and ref.py are called, so an older checkout's kernels are timed
+    alike."""
+    from repro_torch.kernels.tree_reduce import ops as tops, ref as tref
+    res = phase_tree_timing(torch, tops, tref)
+    print(json.dumps({"tree_timings": tops.__file__, **res}))
+    print(_smi())
+    return 0
+
+
+TIMINGS = {"--decode-timings": decode_timings,
+           "--tree-timings": tree_timings}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    timings_only = argv[:1] == ["--decode-timings"]
-    src = Path(argv[1]).resolve() if timings_only else SRC
+    timings = TIMINGS.get(argv[0]) if argv else None
+    src = Path(argv[1]).resolve() if timings else SRC
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found (run from the "
               "repo root checkout)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    if timings_only:
-        return decode_timings(torch)
+    if timings:
+        return timings(torch)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.gemm import ops as gops, ref as gref
@@ -2234,6 +2454,7 @@ def main(argv=None) -> int:
     print("[2] kernels vs plain versions", flush=True)
     t0 = time.perf_counter()
     tree_err = phase_tree_kernels(torch, tops, tref, dev)
+    phase_tree_guards(torch, tops, dev)
     tree_timing = phase_tree_timing(torch, tops, tref)
     gemm_err, gemm_rel = phase_gemm_kernels(torch, gops, gref, dev)
     gemm_timing = phase_gemm_timing(torch, gops, gref)
@@ -2320,7 +2541,7 @@ def main(argv=None) -> int:
         name="tree_reduce", route="cuda",
         source="src/repro_torch/kernels/tree_reduce/csrc/tree_sum.cu",
         replaces=f"{tr}:38", launches=ops_launches["tree_reduce"],
-        max_abs_err=tree_err["tree_reduce"],
+        paths=ops_paths["tree_reduce"], max_abs_err=tree_err["tree_reduce"],
         shape=[TREE_TIME_N, TREE_TIME_D], **tree_timing["f32"],
         bf16_rows={k: tree_timing["bf16"][k] for k in
                    ("ms", "plain_ms", "library_ms", "bound_ms")}))
@@ -2328,6 +2549,7 @@ def main(argv=None) -> int:
         name="int8_tree_reduce", route="cuda",
         source="src/repro_torch/kernels/tree_reduce/csrc/tree_sum.cu",
         replaces=f"{tr}:85", launches=ops_launches["int8_tree_reduce"],
+        paths=ops_paths["int8_tree_reduce"],
         max_abs_err=tree_err["int8_tree_reduce"],
         shape=[TREE_TIME_N, TREE_TIME_D // 128, 128], **tree_timing["int8"]))
     kernels.append(dict(

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written
-// kernels: mbarriers, TMA tile loads (cp.async.bulk.tensor), wgmma
+// kernels: mbarriers, TMA tile loads (cp.async.bulk.tensor) and 1-D bulk
+// copies (cp.async.bulk), wgmma
 // shared-memory descriptors and instructions, setmaxnreg, and the host
 // function that encodes a TMA tensor map.
 //
@@ -124,6 +125,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1-D bulk copy (no tensor map): `bytes` contiguous bytes global -> shared,
+// completion counted on `bar` in bytes.  Both addresses 16-byte aligned,
+// `bytes` a multiple of 16.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -22,10 +22,18 @@ there is no interpret mode here.  Dispatch follows the tensor's device:
     B4; the zero rows are implicit, never copied) and ``csrc/tree_reduce.cu``
     (B1, B2), or an error.  Nothing falls back.
 
+``tree_sum_path`` picks B3's and B4's kernel before the launch: "ring"
+(rows and pointers on 16 bytes: the persistent bulk-copy ring) or
+"ragged" (anything else: the grid-stride kernels).  ``tree_sum_tiles``
+mirrors the ring's walk on the host (its grid, each block's work items
+and every bulk copy), so the CPU tests can check it covers every column
+once with copies the hardware takes.
+
 ``TREE_SUM_LAUNCHES``, ``INT8_TREE_SUM_LAUNCHES``, ``BF16_LAUNCHES`` and
 ``INT8_LAUNCHES`` count the kernels' launches (each kernel wrapper adds one
 per call that launches and nowhere else), so a run can show that its path
-went through the kernels.
+went through the kernels; ``TREE_SUM_LAUNCHES_BY_PATH`` and
+``INT8_TREE_SUM_LAUNCHES_BY_PATH`` count the same launches by path.
 """
 
 from __future__ import annotations
@@ -44,8 +52,20 @@ BF16_LAUNCHES = 0
 INT8_LAUNCHES = 0
 TREE_SUM_LAUNCHES = 0
 INT8_TREE_SUM_LAUNCHES = 0
+TREE_SUM_LAUNCHES_BY_PATH = {"ring": 0, "ragged": 0}
+INT8_TREE_SUM_LAUNCHES_BY_PATH = {"ring": 0, "ragged": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PATH_CODE = {"ragged": 0, "ring": 1}
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+# the ring kernel's shapes (csrc/tree_sum.cu: kSlice, kRingBytes): a work
+# item loads RING_SLICE_BYTES of each of its 2^L input rows; a block's
+# ring holds RING_BYTES of row slices (B4's scales beside them), so
+# RING_BYTES / (2^L x RING_SLICE_BYTES) stages
+RING_SLICE_BYTES = 8192
+RING_BYTES = 192 * 1024
+MAX_LEVELS = 3                    # rows a pass halves in registers: 2^3
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,24 +85,133 @@ def _sum_lib():
     lib = build.load("tree_sum")
     lib.tree_sum_launch.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+         ctypes.c_void_p])
     lib.tree_sum_launch.restype = ctypes.c_int
     lib.int8_tree_sum_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                 ctypes.c_void_p])
+                                 ctypes.c_int, ctypes.c_void_p])
     lib.int8_tree_sum_launch.restype = ctypes.c_int
-    lib.tree_sum_scratch_rows.argtypes = [ctypes.c_int64]
-    lib.tree_sum_scratch_rows.restype = ctypes.c_int64
+    lib.tree_sum_ring_occupancy.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.tree_sum_ring_occupancy.restype = ctypes.c_int
     return lib
 
 
-def _scratch(n: int, cols: int, like: torch.Tensor):
-    """The f32 scratch rows that tree_sum.cu's passes over n input rows
-    need (the first pass's output), or None when one pass does it all."""
-    rows = _sum_lib().tree_sum_scratch_rows(n)
-    if rows == 0:
-        return None
-    return torch.empty((rows, cols), dtype=torch.float32, device=like.device)
+def tree_sum_passes(n: int) -> list:
+    """The passes of tree_sum.cu over n input rows, as (levels, input
+    rows that exist, output rows): a first pass of up to 3 levels over the
+    n rows, then passes of up to 3 levels over the f32 scratch (rows padded
+    to max(2, 2^ceil(log2 n)) read as zero and are never loaded)."""
+    levels = max(1, (n - 1).bit_length())
+    k = min(levels, MAX_LEVELS)
+    out, rows_real, rows = [], n, (1 << levels) >> k
+    out.append((k, rows_real, rows))
+    left = levels - k
+    while left:
+        k = min(left, MAX_LEVELS)
+        out.append((k, rows, rows >> k))
+        rows >>= k
+        left -= k
+    return out
+
+
+def ring_stages(levels: int) -> int:
+    """Stages of the ring at ``levels`` (2^levels row slices a stage)."""
+    return RING_BYTES // ((1 << levels) * RING_SLICE_BYTES)
+
+
+def tree_sum_tiles(N: int, D: int, elem_bytes: int, sms: int,
+                   blocks_per_sm: int) -> list:
+    """The ring's walk, as csrc/tree_sum.cu computes it, over N rows of D
+    elements of ``elem_bytes`` bytes (4 f32, 2 bf16, 1 int8 codes with
+    D = nb * 128) on ``sms`` SMs holding ``blocks_per_sm`` blocks each.
+
+    One dict per pass (``tree_sum_passes``; the passes after the first read
+    the f32 scratch): ``levels``, ``rows_real``, ``rows_out``,
+    ``elem_bytes``, ``tile_cols``, ``tiles``, ``grid`` (every block that
+    fits, or one an item), ``stages`` and ``blocks``, a list per block of
+    its work items in order: block b takes items b, b + grid, ...  An item
+    is a dict: output row ``o``, tile ``t``, first column ``c0``, ``cols``,
+    the ring ``stage`` and its ``lap`` (barrier phase), and ``copies``, the
+    bulk copies of its input rows as (row, byte offset from the tensor's
+    start, bytes), then for B4's first pass ``scale_copies`` the same over
+    the scales [N, nb]."""
+    passes = []
+    for p, (levels, rows_real, rows_out) in enumerate(tree_sum_passes(N)):
+        e = elem_bytes if p == 0 else 4
+        T = RING_SLICE_BYTES // e
+        tiles = -(-D // T)
+        items = rows_out * tiles
+        grid = min(sms * blocks_per_sm, items)
+        stages = ring_stages(levels)
+        blocks = []
+        for b in range(grid):
+            walk = []
+            for k, i in enumerate(range(b, items, grid)):
+                o, t = divmod(i, tiles)
+                c0 = t * T
+                cols = min(T, D - c0)
+                rows = [r for r in (o + m * rows_out
+                                    for m in range(1 << levels))
+                        if r < rows_real]
+                item = dict(o=o, t=t, c0=c0, cols=cols, stage=k % stages,
+                            lap=k // stages,
+                            copies=[(r, (r * D + c0) * e, cols * e)
+                                    for r in rows])
+                if e == 1:
+                    nb = D // CODEC_BLOCK
+                    item["scale_copies"] = [
+                        (r, (r * nb + c0 // CODEC_BLOCK) * 4,
+                         cols // CODEC_BLOCK * 4) for r in rows]
+                walk.append(item)
+            blocks.append(walk)
+        passes.append(dict(levels=levels, rows_real=rows_real,
+                           rows_out=rows_out, elem_bytes=e, tile_cols=T,
+                           tiles=tiles, grid=grid, stages=stages,
+                           blocks=blocks))
+    return passes
+
+
+def tree_sum_path(x: torch.Tensor, scale: torch.Tensor = None) -> str:
+    """The kernel that ``tree_reduce_kernel`` (x [N, D] f32/bf16) or
+    ``int8_tree_reduce_kernel`` (x = q [N, nb, 128] int8 with ``scale``)
+    launches: "ring" when every row starts on 16 bytes (f32 D % 4 == 0,
+    bf16 D % 8 == 0; int8 nb % 4 == 0, so that the rows of scales do too)
+    and x (and scale) start on 16 bytes, so that every bulk copy is
+    aligned; else "ragged".  Outputs and scratch are fresh allocations,
+    always aligned."""
+    if x.dtype == torch.int8:
+        ok = x.shape[1] % 4 == 0 and scale.data_ptr() % 16 == 0
+    else:
+        ok = (x.shape[1] * x.element_size()) % 16 == 0
+    return "ring" if ok and x.data_ptr() % 16 == 0 else "ragged"
+
+
+def ring_occupancy(in_dtype=torch.float32, out_dtype=torch.float32,
+                   levels: int = MAX_LEVELS) -> tuple:
+    """(SMs, blocks an SM holds) of the ring kernel for ``in_dtype``
+    (float32, bfloat16, or int8 for B4's first pass) into ``out_dtype`` at
+    ``levels`` on the current CUDA device: the numbers the launcher sizes
+    its grid from (``tree_sum_tiles`` takes them)."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    err = _sum_lib().tree_sum_ring_occupancy(
+        _DTYPE_CODE[in_dtype], _DTYPE_CODE[out_dtype], levels,
+        ctypes.byref(per_sm), ctypes.byref(sms))
+    _launched("tree_sum_ring_occupancy", err)
+    return sms.value, per_sm.value
+
+
+def _buffers(n: int, cols: int, out_dtype, device):
+    """The output [cols] and the f32 scratch that tree_sum.cu's passes over
+    n input rows need: the first pass's output rows, or None when one pass
+    does it all.  ``chip_smoke.py`` swaps this for guarded buffers."""
+    out = torch.empty(cols, dtype=out_dtype, device=device)
+    passes = tree_sum_passes(n)
+    if len(passes) == 1:
+        return out, None
+    return out, torch.empty((passes[0][2], cols), dtype=torch.float32,
+                            device=device)
 
 
 def _check(name, keep, **wire):
@@ -164,7 +293,7 @@ def tree_reduce_kernel(x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"tree_reduce_kernel needs a CUDA tensor, got x on "
                          f"{x.device}")
-    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+    if x.dtype not in _FLOAT_DTYPES or out_dtype not in _FLOAT_DTYPES:
         raise TypeError(f"tree_reduce_kernel takes float32/bfloat16, got x "
                         f"{x.dtype} and out_dtype {out_dtype}")
     if x.ndim != 2 or x.shape[0] < 1:
@@ -172,16 +301,18 @@ def tree_reduce_kernel(x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     N, D = x.shape
-    out = torch.empty(D, dtype=out_dtype, device=x.device)
-    scratch = _scratch(N, D, x)
+    path = tree_sum_path(x)
     with torch.cuda.device(x.device):
+        out, scratch = _buffers(N, D, out_dtype, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _sum_lib().tree_sum_launch(
             x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
             _DTYPE_CODE[out_dtype],
-            0 if scratch is None else scratch.data_ptr(), N, D, stream)
-    _launched("tree_sum", err)
+            0 if scratch is None else scratch.data_ptr(), N, D,
+            _PATH_CODE[path], stream)
+    _launched(f"tree_sum ({path} path)", err)
     TREE_SUM_LAUNCHES += 1
+    TREE_SUM_LAUNCHES_BY_PATH[path] += 1
     return out
 
 
@@ -208,15 +339,17 @@ def int8_tree_reduce_kernel(q: torch.Tensor, scale: torch.Tensor
     if not (q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("q and scale must be contiguous")
     N, nb, _ = q.shape
-    out = torch.empty(nb * CODEC_BLOCK, dtype=torch.float32, device=q.device)
-    scratch = _scratch(N, nb * CODEC_BLOCK, q)
+    path = tree_sum_path(q, scale)
     with torch.cuda.device(q.device):
+        out, scratch = _buffers(N, nb * CODEC_BLOCK, torch.float32, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _sum_lib().int8_tree_sum_launch(
             q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), N, nb, stream)
-    _launched("int8_tree_sum", err)
+            0 if scratch is None else scratch.data_ptr(), N, nb,
+            _PATH_CODE[path], stream)
+    _launched(f"int8_tree_sum ({path} path)", err)
     INT8_TREE_SUM_LAUNCHES += 1
+    INT8_TREE_SUM_LAUNCHES_BY_PATH[path] += 1
     return out
 
 
@@ -307,7 +440,9 @@ def decode_add(keep: torch.Tensor, wire, codec) -> torch.Tensor:
 
 
 __all__ = ["tree_reduce", "encode_rows", "coded_tree_reduce", "decode_add",
-           "tree_reduce_kernel", "int8_tree_reduce_kernel",
+           "tree_reduce_kernel", "int8_tree_reduce_kernel", "tree_sum_path",
+           "tree_sum_passes", "tree_sum_tiles", "ring_stages",
+           "ring_occupancy",
            "decode_add_bf16_kernel", "decode_add_int8_kernel",
            "tree_reduce_ref", "int8_tree_reduce_ref", "decode_add_bf16",
            "decode_add_int8"]
