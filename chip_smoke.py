@@ -69,6 +69,18 @@ The quickest proof that the port starts on the card.  Phases, in order
                 tables wider than any row: no write outside a buffer, no
                 read past an input, every partial state written, the
                 output bit for bit the same twice and as unguarded;
+  2b. table1 — the paper's Table 1 from the port's event simulator, on
+                the host: every mesh equal to the cycles
+                ``tests/test_table1_regression.py`` pins, the FractalSync
+                ratios 1.00, and the host seconds it took;
+  2c. schedules — ``all_reduce`` and ``reduce_scatter`` of every
+                schedule (world 4 and 8; xy and hierarchical at 2 x 4;
+                ring, xy and naive at world 6, all-reduce only) ``==``
+                the sum over ranks on 256 MB a rank of small integers,
+                and bit for bit the CPU lowering on random f32; each
+                lowering once with no synchronising call; each
+                all-reduce timed at world 4 (row permutations in the
+                card's memory, not a network);
   3. serve    — ``repro_torch.launch.serve.main`` on gemma2-2b at full
                 width (bf16, random init, paged KV, 16 requests): all
                 requests complete and the kernel's and its merge's launch
@@ -88,6 +100,16 @@ The quickest proof that the port starts on the card.  Phases, in order
                 step; one real bucket of gradients reduce-scattered through
                 the kernels equals the same call through the plain
                 versions, bit for bit;
+  5b. auto    — the slice-8 main path: the same run (3 steps) with
+                ``--schedule auto --bucket-mb auto --bucket-codec auto``:
+                the plan (buckets, sizes, schedule + codec each) is
+                printed, B1/B2 launched exactly steps x (buckets with
+                that codec) x log2(4) times, finite losses, step 0's loss
+                equal to phase 5's; step time, tokens/s, peak memory and
+                a profiled step's idle share;
+  5c. forced  — one step each of ``--schedule ring`` and ``tree`` with
+                ``--bucket-codec int8`` (normalised away) at 2 layers: no
+                decode-add launch, a finite loss;
   6. serve    — ``repro_torch.launch.serve.run`` on DeepSeek-V3 at its
                 published widths with ONE cut, 61 -> 5 layers (3 dense MLA
                 + 2 MLA+MoE, plus the MTP module; memory: see ``DS_CUT``),
@@ -198,6 +220,37 @@ TRAIN_ARGS = ["--arch", "gemma2-2b", "--device", "cuda", "--devices",
               str(TRAIN_WORLD), "--steps", str(TRAIN_STEPS), "--batch", "8",
               "--seq", "1024", "--schedule", "fractal", "--bucket-mb",
               "256", "--lr", "3e-4", "--seed", "0"]
+# The slice-8 main path: the same run with every choice left to the
+# autotuner (schedule and codec per bucket, the DP bucket boundaries).
+# Its plan (8 buckets of 226-2586 MB, fractal + int8 each at world 4)
+# holds about what the fixed int8 run holds.
+TRAIN_AUTO = ["--schedule", "auto", "--bucket-mb", "auto",
+              "--bucket-codec", "auto"]
+# A forced non-fractal schedule through the CLI, one step each, at 2 layers
+# (an earlier path's depth, cut to save time): the int8 codec is asked for
+# and normalised away, so no decode-add kernel may launch.
+TRAIN_FORCED = ("ring", "tree")
+TRAIN_FORCED_CUT = dict(num_layers=2, layer_pattern=("local", "global"))
+
+# Table 1 as ``tests/test_table1_regression.py`` pins it:
+#   {mesh: (fsync, fsync_p, naive, xy)} simulated cycles
+TABLE1_PINNED = {"Neighbor": (4, 4, 75, 75), "2x2": (6, 6, 135, 192),
+                 "4x4": (10, 10, 573, 359), "8x8": (14, 18, 2350, 734),
+                 "16x16": (18, 34, 9381, 1683)}
+# Every schedule on the card: (mesh shape, schedules).  Payloads per rank:
+# one real bucket, 64 Mi f32 elements (256 MB; at world 6 the largest
+# multiple of 6 x 128 below it), of small integers so that every order of
+# the adds is exact; and a small random one, held bit for bit to the same
+# lowering on the CPU.  Reduce-scatter needs a power-of-two world.
+SCHEDULE_SHAPES = [((4,), ("fractal", "ring", "xy", "naive", "hierarchical",
+                           "tree", "xla")),
+                   ((8,), ("fractal", "ring", "xy", "naive", "hierarchical",
+                           "tree", "xla")),
+                   ((2, 4), ("xy", "hierarchical")),
+                   ((6,), ("ring", "xy", "naive"))]
+SCHEDULE_M = 64 << 20
+SCHEDULE_SMALL_M = 3 * 1024
+SCHEDULE_TIMED_SHAPE = (4,)
 
 # B8 (absorbed MLA) vs its plain version, per output row (b, h) relative
 # to the row's RMS as for B7.  f32: F32_ATOL.  bf16: the kernel rounds
@@ -2022,11 +2075,12 @@ def phase_decode_step(torch, cfg, dev, atol):
     _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt)
 
 
-def _sync_free(torch, step):
-    """One ``step()`` (a decode forward, every input already on the card)
-    under ``torch.cuda.set_sync_debug_mode("error")``: a synchronising call
-    raises.  If one does, the step runs again under "warn" to list every
-    call site, and the phase fails."""
+def _sync_free(torch, step, what="the decode forward",
+               call="one decode_step"):
+    """One ``step()`` (e.g. a decode forward, every input already on the
+    card) under ``torch.cuda.set_sync_debug_mode("error")``: a synchronising
+    call raises.  If one does, the step runs again under "warn" to list
+    every call site, and the phase fails."""
     import warnings
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2039,8 +2093,8 @@ def _sync_free(torch, step):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     if first is None:
-        print("  0 synchronising calls in the decode forward (one decode_step"
-              " under torch.cuda.set_sync_debug_mode('error'))")
+        print(f"  0 synchronising calls in {what} ({call} under "
+              "torch.cuda.set_sync_debug_mode('error'))")
         return
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
@@ -2051,8 +2105,8 @@ def _sync_free(torch, step):
             torch.cuda.set_sync_debug_mode("default")
     sites = [f"{w.filename}:{w.lineno}" for w in seen
              if "synchroniz" in str(w.message)]
-    raise AssertionError(f"{len(sites)} synchronising calls in the decode "
-                         f"forward ({first}): {sites}")
+    raise AssertionError(f"{len(sites)} synchronising calls in {what} "
+                         f"({first}): {sites}")
 
 
 def _self_device_us(evt):
@@ -2153,15 +2207,19 @@ def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
 # ---------------------------------------------------------------------------
 
 
-def train_config():
+def train_config(cut=None):
     import dataclasses
     from repro_torch.models.registry import get_config
-    return dataclasses.replace(get_config("gemma2-2b"), **TRAIN_CUT)
+    return dataclasses.replace(get_config("gemma2-2b"), **(cut or TRAIN_CUT))
 
 
 def train_args(codec):
+    return _train_parse(["--bucket-codec", codec])
+
+
+def _train_parse(extra):
     from repro_torch.launch import train as train_cli
-    return train_cli.parse_args(TRAIN_ARGS + ["--bucket-codec", codec])
+    return train_cli.parse_args(TRAIN_ARGS + extra)
 
 
 def train_engine(cfg, codec):
@@ -2179,10 +2237,11 @@ def train_engine(cfg, codec):
                       args.devices, force_dtype=torch.float32)
 
 
-def phase_train(torch, tops, cfg):
+def phase_train(torch, tops, cfg, first_losses=None):
     """The main path: ``launch.train.run`` with each codec; the counts are
     set to 0 just before each run and read just after.  Returns each
-    codec's launch count."""
+    codec's launch count; ``first_losses`` (a dict), when given, gets each
+    run's step-0 loss."""
     import numpy as np
     from repro_torch.launch import train as train_cli
     launches = {}
@@ -2220,8 +2279,38 @@ def phase_train(torch, tops, cfg):
               f"{args.steps} steps x {n_b} buckets x {hops} hops; peak "
               f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
         launches[codec] = counts[codec]
+        if first_losses is not None:
+            first_losses[codec] = losses[0]
         del out
     return launches
+
+
+def _profiled_steps(torch, step, state, data, dev, label):
+    """Three steps of ``step`` from data steps 0-2: one to warm, one timed
+    on the host clock, one under ``torch.profiler``.  Prints the host time
+    against the device's kernel time (the idle share); returns ``(state,
+    metrics, wall s, busy s, prof)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = step(state, data.batch(0))                 # warm
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, _ = step(state, data.batch(1))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(2))
+        torch.cuda.synchronize(dev)
+        wall_prof = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    print(f"  {label} step: {wall:.3f} s on the host clock ({wall_prof:.3f} "
+          f"s under the profiler); device kernels {busy:.3f} s (profiler), "
+          f"so the card idles {max(0.0, 1 - busy / wall) * 100:.1f}% of the "
+          f"step; loss {m['loss'].item():.4f}")
+    return state, m, wall, busy, prof
 
 
 def _plain_decode_add(tref):
@@ -2238,14 +2327,11 @@ def phase_train_profile(torch, cfg, tref, codecs):
     real gradients (4 ranks' rows) reduce-scattered through the kernels
     and through the plain versions: equal bit for bit."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import collectives as C
     from repro_torch.core.bsp import BSPConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.trainer import make_bsp_train_step
-    from repro_torch.weights import reference_leaves
     args = train_args("int8")
     dev = torch.device(args.device)
     step, init_state = make_bsp_train_step(
@@ -2256,26 +2342,11 @@ def phase_train_profile(torch, cfg, tref, codecs):
     state = init_state(T.init_params(cfg, args.seed, device=dev))
     data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
                                        seq_len=args.seq, seed=args.seed))
-    state, _ = step(state, data.batch(0))                 # warm
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    state, _ = step(state, data.batch(1))
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, data.batch(2))
-        torch.cuda.synchronize(dev)
-        wall_prof = time.perf_counter() - t0
+    state, _, _, busy, prof = _profiled_steps(torch, step, state, data,
+                                              dev, "int8")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     b2 = [e.time_range.elapsed_us() for e in kernels
           if "decode_add_int8" in e.name]
-    print(f"  int8 step: {wall:.3f} s on the host clock ({wall_prof:.3f} s "
-          f"under the profiler); device kernels {busy:.3f} s (profiler), so "
-          f"the card idles {max(0.0, 1 - busy / wall) * 100:.1f}% of the "
-          f"step; loss {m['loss'].item():.4f}")
     share = sum(b2) / 1e4 / max(busy, 1e-9)
     print(f"  B2 in that step: {len(b2)} launches, {sum(b2) / 1e3:.3f} ms "
           f"of device time ({share:.2f}% of the step's kernels)")
@@ -2283,43 +2354,300 @@ def phase_train_profile(torch, cfg, tref, codecs):
                                     row_limit=12, max_name_column_width=40))
     state.flat_mu = state.flat_nu = state.ef_residual = None
     del prof
-
     engine = init_state.engine
     bkt = max(engine.buckets, key=lambda b: b.length)
-    leaves = reference_leaves(state.params, cfg)
+    real_bucket_check(torch, cfg, tref, codecs, engine, state.params,
+                      data.batch(3), dev,
+                      [(bkt, "bf16"), (bkt, "int8")])
+
+
+def real_bucket_check(torch, cfg, tref, codecs, engine, params, batch, dev,
+                      pairs):
+    """Each rank's gradients of ``batch`` (its quarter of the rows) packed
+    into the buckets of ``pairs`` (``(bucket, codec name)``), each bucket
+    reduce-scattered by ``fractal_reduce_scatter`` with that codec through
+    the kernels and through the plain versions: equal bit for bit."""
+    from repro_torch.core import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import reference_leaves
+    leaves = reference_leaves(params, cfg)
     flat = [t for leaf in leaves for t in leaf.parts]
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in data.batch(3).items()}
-    world = args.devices
-    rows = torch.zeros(world, bkt.length, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    world = engine.world
+    buckets = {b.index: b for b, _ in pairs}
+    rows = {i: torch.zeros(world, b.length, device=dev)
+            for i, b in buckets.items()}
     per = batch["tokens"].shape[0] // world
     for r in range(world):
         mb = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-        loss, _ = T.loss_fn(state.params, cfg, mb)
+        loss, _ = T.loss_fn(params, cfg, mb)
         it = iter(torch.autograd.grad(loss, flat))
         grads = [[next(it) for _ in leaf.parts] for leaf in leaves]
-        engine.pack_bucket(bkt, grads, out=rows[r])
+        for i, b in buckets.items():
+            engine.pack_bucket(b, grads, out=rows[i][r])
         del grads, it, loss
     with torch.no_grad():
-        for name in ("bf16", "int8"):
-            got = C.fractal_reduce_scatter(rows, codecs[name])
+        for b, name in pairs:
+            got = C.fractal_reduce_scatter(rows[b.index], codecs[name])
             kernel_op = C.decode_add
             C.decode_add = _plain_decode_add(tref)
             try:
-                want = C.fractal_reduce_scatter(rows, codecs[name])
+                want = C.fractal_reduce_scatter(rows[b.index], codecs[name])
             finally:
                 C.decode_add = kernel_op
-            torch.cuda.synchronize(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             same = _same_bits(torch, got, want)
-            print(f"  real bucket b{bkt.index} ({world} x {bkt.length}"
-                  f" f32 gradients): fractal_reduce_scatter with {name} "
-                  f"through the kernels is "
+            print(f"  real bucket b{b.index} ({world} x {b.length} f32 "
+                  f"gradients): fractal_reduce_scatter with {name} through "
+                  f"the kernels is "
                   f"{'bit-identical' if same else 'DIFFERENT'} to the plain"
                   f" versions")
             if not same:
-                raise AssertionError(f"real-bucket reduce-scatter ({name}) "
-                                     "differs between kernel and plain")
+                raise AssertionError(f"real-bucket reduce-scatter ({name}, "
+                                     f"b{b.index}) differs between kernel "
+                                     "and plain")
             del got, want
+
+
+# ---------------------------------------------------------------------------
+# slice 8: Table 1, every schedule, the auto superstep, forced schedules
+# ---------------------------------------------------------------------------
+
+
+def phase_table1():
+    """The paper's Table 1 from the port's event simulator, on the host:
+    every mesh's cycles must equal ``TABLE1_PINNED`` and the FractalSync
+    ratios must print 1.00.  Returns the host seconds the phase took."""
+    from repro_torch.core.simulator import simulate_config
+    from repro_torch.launch.table1 import rows
+    t0 = time.perf_counter()
+    results = {name: simulate_config(name) for name in TABLE1_PINNED}
+    secs = time.perf_counter() - t0
+    lines = list(rows(results))
+    for line in lines:
+        print(f"  {line}")
+    bad = [(name, pins, tuple(results[name][k] for k in
+                              ("fsync", "fsync_p", "naive", "xy")))
+           for name, pins in TABLE1_PINNED.items()
+           if tuple(results[name][k] for k in
+                    ("fsync", "fsync_p", "naive", "xy")) != pins]
+    if bad:
+        raise AssertionError(f"Table 1 cycles (mesh, pinned, simulated): "
+                             f"{bad}")
+    fs = [ln for ln in lines if "/fsync," in ln or "/fsync_p," in ln]
+    if len(fs) != 2 * len(TABLE1_PINNED) or \
+            not all(ln.endswith("ratio=1.00") for ln in fs):
+        raise AssertionError(f"fsync ratios: {fs}")
+    print(f"  Table 1 equals the pinned cycles ({len(results)} meshes); "
+          f"simulated in {secs:.2f} s of host time")
+    return secs
+
+
+def _schedule_payload(torch, W, M, dev, seed, exact):
+    g = torch.Generator().manual_seed(seed)
+    if exact:
+        x = torch.randint(-7, 8, (W, M), generator=g).float()
+    else:
+        x = torch.randn(W, M, generator=g) * torch.randn(
+            W, M, generator=g).exp()
+    return x.to(dev)
+
+
+def _schedule_m(W, M):
+    """The largest multiple of W x 128 at most ``M`` (every IR program
+    cuts a row into at most W chunks, the scatter into W shards)."""
+    return M // (W * 128) * (W * 128)
+
+
+def phase_schedules(torch, dev):
+    """``all_reduce`` and ``reduce_scatter`` of every schedule at every
+    shape of ``SCHEDULE_SHAPES``: (a) on 256 MB a rank of small integers,
+    ``==`` the sum over the rank axis (sliced at ``bit_reversed_index``
+    for the scatter); (b) on random f32, bit for bit the same lowering run
+    on the CPU (every schedule but ``xla``, whose ``torch.sum`` adds in the
+    library's own order on each device).  On the card each lowering also runs once under
+    ``set_sync_debug_mode("error")``, and at world 4 each schedule's
+    all-reduce is timed (device ms, CUDA graph).  Returns the timings."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core import schedule_ir as IR
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    checked = 0
+    for shape, names in SCHEDULE_SHAPES:
+        W = math.prod(shape)
+        pow2 = W & (W - 1) == 0
+        for exact, M in ((True, _schedule_m(W, SCHEDULE_M)),
+                         (False, _schedule_m(W, SCHEDULE_SMALL_M))):
+            x = _schedule_payload(torch, W, M, dev, W, exact)
+            want = x.sum(0) if exact else None
+            xc = None if exact else x.to(cpu)
+            rev = C.bit_reversed_index(W, dev) if pow2 else None
+            for name in names:
+                if not exact and name == "xla":
+                    continue      # torch.sum's order is the library's
+                outs = {"all_reduce": lambda: C.all_reduce(x, name, shape)}
+                if pow2:
+                    outs["reduce_scatter"] = lambda: C.reduce_scatter(
+                        x, name, shape=shape)
+                for op, fn in outs.items():
+                    got = fn()
+                    if exact:
+                        ok = torch.equal(got, want.expand_as(x)) \
+                            if op == "all_reduce" else \
+                            torch.equal(got, want.view(W, -1)[rev])
+                    else:
+                        ref = C.all_reduce(xc, name, shape) \
+                            if op == "all_reduce" else \
+                            C.reduce_scatter(xc, name, shape=shape)
+                        ok = _same_bits(torch, got.to(cpu), ref)
+                    if not ok:
+                        what = "the sum over ranks" if exact else \
+                            "the CPU lowering"
+                        raise AssertionError(
+                            f"{op} {name} at {shape}, M {M}: differs from "
+                            f"{what}")
+                    checked += 1
+                    del got
+            del x, want, xc
+    print(f"  {checked} checks: every schedule's all_reduce (and, at "
+          f"power-of-two worlds, reduce_scatter) == the sum over ranks on "
+          f"{SCHEDULE_M} small-integer f32 a rank, and (xla, a library sum, "
+          f"aside) bit for bit the CPU lowering on {SCHEDULE_SMALL_M} random "
+          f"f32 a rank")
+    if not on_card:
+        return {}
+    timings = {}
+    shape = SCHEDULE_TIMED_SHAPE
+    W = math.prod(shape)
+    M = _schedule_m(W, SCHEDULE_M)
+    x = _schedule_payload(torch, W, M, dev, 0, True)
+    for name in SCHEDULE_SHAPES[0][1]:
+        if name != "xla":
+            _sync_free(torch, lambda: C.all_reduce(x, name, shape),
+                       f"the {name} all-reduce", "one call")
+    smi = _smi()
+    print(f"  all-reduce at world {W}, {M * 4 / 1e6:.0f} MB a rank, device "
+          f"time (CUDA graph) on {smi}.  These time row permutations of one "
+          f"[{W}, {M}] tensor in the card's memory, NOT a network:")
+    for name in SCHEDULE_SHAPES[0][1]:
+        ms = _time_ms(torch, lambda i: C.all_reduce(x, name, shape), 1,
+                      3)["graph"]
+        if name == "xla":
+            what = "a plain sum over the rank axis (no IR program)"
+        else:
+            st = IR.validate(IR.build_program(name, shape))
+            what = (f"{st['steps']:.0f} steps, {st['messages']:.0f} "
+                    f"messages, at most {st['max_frac_sent'] * M * 4 / 1e6:.1f}"
+                    f" MB sent by one rank")
+        timings[name] = ms
+        print(f"    {name:12s} {ms:9.3f} ms  ({what}; {smi})")
+    del x
+    return timings
+
+
+def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss):
+    """The slice's main path: ``launch.train.run`` with ``TRAIN_AUTO``
+    (schedule, codec and bucket boundaries all left to the autotuner), its
+    counts set to 0 just before and read just after.  Each codec's count
+    must equal steps x (buckets with that codec) x log2(world), the losses
+    must be finite and step 0's must equal ``first_loss`` (phase 5's, the
+    same params and batch before any sync).  Then three more steps of the
+    same configuration for the idle share, and every bucket of the plan
+    that carries a codec held to the plain versions on real gradients
+    (``real_bucket_check``), so each hop length the auto path gives B1/B2
+    is checked.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import make_bsp_train_step
+    args = _train_parse(TRAIN_AUTO)
+    dev = torch.device(args.device)
+    print(f"  {cfg.name} at published widths, cut to {cfg.num_layers} "
+          f"layers; world {args.devices}; {' '.join(TRAIN_AUTO)}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+    out = train_cli.run(cfg, args)
+    counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    eng = out["engine"]
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != args.steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"auto: losses {losses}")
+    if losses[0] != first_loss:
+        raise AssertionError(f"auto: step-0 loss {losses[0]!r}, the fixed "
+                             f"run's {first_loss!r}")
+    hops = args.devices.bit_length() - 1
+    want = {c: args.steps * eng.codec_names.count(c) * hops
+            for c in ("bf16", "int8")}
+    print(f"  plan: {eng.n_buckets} buckets, "
+          f"{[b.length for b in eng.buckets]} f32 elements; "
+          + ", ".join(f"b{b.index} {s}+{c}" for b, s, c in
+                      zip(eng.buckets, eng.schedules, eng.codec_names)))
+    if counts != want or not any(want.values()):
+        raise AssertionError(
+            f"auto: launches {counts}, want {want} (= {args.steps} steps x "
+            f"buckets with the codec x log2({args.devices}))")
+    tokens = args.batch * args.seq
+    for h in hist:
+        print(f"  auto step {h['step']}: loss {h['loss']:.4f}, "
+              f"{h['sec']:.3f} s, {tokens / h['sec']:.0f} tokens/s")
+    print(f"  auto: launches {counts} = {args.steps} steps x buckets with "
+          f"each codec x {hops} hops; step-0 loss {losses[0]!r} == the "
+          f"fixed run's; peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.1f} GB)")
+    del out
+    step, init_state = make_bsp_train_step(
+        cfg, AdamWConfig(lr=args.lr, total_steps=args.steps,
+                         warmup_steps=1), train_cli.bsp_config(args),
+        args.devices, device=dev)
+    if init_state.engine.describe() != eng.describe():
+        raise AssertionError(f"auto: plan {init_state.engine.describe()}, "
+                             f"the run's {eng.describe()}")
+    state = init_state(T.init_params(cfg, args.seed, device=dev))
+    data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                       seq_len=args.seq, seed=args.seed))
+    if dev.type == "cuda":
+        state = _profiled_steps(torch, step, state, data, dev, "auto")[0]
+    state.flat_mu = state.flat_nu = state.ef_residual = None
+    real_bucket_check(torch, cfg, tref, codecs, eng, state.params,
+                      data.batch(3), dev,
+                      [(b, c) for b, c in zip(eng.buckets, eng.codec_names)
+                       if c != "none"])
+    return counts
+
+
+def phase_train_forced(torch, tops, cfg):
+    """``launch.train.run`` once for each of ``TRAIN_FORCED`` with
+    ``--bucket-codec int8``, one step: the codec is normalised away on a
+    non-fractal schedule, so no decode-add kernel launches, and the loss
+    is finite.  Returns the schedules' counts."""
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+    seen = {}
+    for name in TRAIN_FORCED:
+        args = _train_parse(["--steps", "1", "--schedule", name,
+                             "--bucket-codec", "int8"])
+        tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+        out = train_cli.run(cfg, args)
+        counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
+        eng = out["engine"]
+        loss = out["history"][0]["loss"]
+        if set(eng.schedules) != {name} or set(eng.codec_names) != {"none"}:
+            raise AssertionError(f"{name}: plan {eng.describe()}")
+        if any(counts.values()) or not np.isfinite(loss):
+            raise AssertionError(f"{name}: launches {counts}, loss {loss}")
+        print(f"  --schedule {name} --bucket-codec int8 ({cfg.num_layers} "
+              f"layers, {eng.n_buckets} buckets, codec normalised to none): "
+              f"loss {loss:.4f} in {out['history'][0]['sec']:.3f} s, "
+              f"decode-add launches {counts}")
+        seen[name] = counts
+        del out
+    return seen
 
 
 def _ptxas_summary(log: str):
@@ -2488,6 +2816,16 @@ def main(argv=None) -> int:
     mla_timing["wide_table"] = phase_mla_wide_timing(torch, ops, ref, ds)
     phase_guards(torch, ops, dev)
 
+    print("[2b] the paper's Table 1 from the port's simulator (host)",
+          flush=True)
+    phase_table1()
+    print("[2c] every schedule's lowering on the card", flush=True)
+    t0 = time.perf_counter()
+    phase_schedules(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  schedules phase: {time.perf_counter() - t0:.1f} s")
+
     print("[3] serve gemma2-2b at full width", flush=True)
     launches, merges = phase_serve(torch, ops, gemma, SERVE_ARGS)
 
@@ -2496,8 +2834,21 @@ def main(argv=None) -> int:
 
     print(f"[5] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
           f"{plan.world}", flush=True)
-    train_launches = phase_train(torch, tops, cfg8)
+    first_losses = {}
+    train_launches = phase_train(torch, tops, cfg8, first_losses)
     phase_train_profile(torch, cfg8, tref, codecs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[5b] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
+          f"{plan.world}, every choice left to the autotuner", flush=True)
+    auto_launches = phase_train_auto(torch, tops, tref, codecs, cfg8,
+                                     first_losses["int8"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = train_config(TRAIN_FORCED_CUT)
+    print(f"[5c] train gemma2-2b ({cfg2.num_layers} of 26 layers) with a "
+          f"forced non-fractal schedule", flush=True)
+    phase_train_forced(torch, tops, cfg2)
 
     # the gemma phases' params, caches and train state are gone; hand their
     # cached blocks back before DeepSeek's 54.6 GB of weights
@@ -2527,6 +2878,7 @@ def main(argv=None) -> int:
             name=name, route="cuda",
             source="src/repro_torch/kernels/tree_reduce/csrc/tree_reduce.cu",
             replaces=f"{tr}:{line}", launches=train_launches[codec],
+            auto_launches=auto_launches[codec],
             max_abs_err=codec_err[codec], elements=hop,
             **codec_timing[codec]))
     kernels.append(dict(

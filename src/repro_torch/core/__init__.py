@@ -1,4 +1,6 @@
-"""BSP core on one device (port of ``repro/core``, slice 2): the
-rank-stacked FractalSync collectives, the BSP config and the bucketed
-SuperstepEngine.  The Schedule IR, cost model, simulator and autotuner
-come with ROADMAP A3."""
+"""BSP core on one device (port of ``repro/core``): the Schedule IR
+(``schedule_ir``, ``tree``) with its three consumers — the rank-stacked
+collectives (``collectives``), the event simulator of the paper's Table 1
+(``simulator``) and the α-β cost model (``cost_model``) with its autotuner
+(``autotune``) — plus the area model, the simulator calibration, fsync
+domains (``barrier``), the BSP config and the bucketed SuperstepEngine."""

@@ -11,9 +11,10 @@ synchronised.  The reference's ``bsp_shard_map`` has no counterpart.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 from . import collectives
+from .cost_model import LinkParams
 
 
 @dataclass(frozen=True)
@@ -22,18 +23,22 @@ class BSPConfig:
 
     sync_axes   : names of the synchronization axes (one rank axis here).
     schedule    : gradient collective schedule (collectives.SCHEDULES), or
-                  "auto" (the cost-model autotuner: not ported yet).
+                  "auto" (the cost-model autotuner picks per bucket).
     compression : uniform payload codec ("none"|"bf16"|"int8").
     fsync_level : barrier scope (None = the whole world).
     pad_align   : each bucket is padded to a multiple of world × pad_align.
     bucket_mb   : ~MB per gradient bucket (reverse-layer order); None → one
-                  bucket; "auto" (the DP boundary search) is not ported yet.
+                  bucket; "auto" → the DP bucket-boundary search against
+                  the overlap-aware cost model.
     overlap     : False collapses bucketing back to one bucket.
     bucket_codec: per-bucket wire codec: None → the uniform ``compression``
                   (EF only, f32 wire); a name → that codec on the wire of
-                  every fractal bucket; "auto" is not ported yet.
-    link        : fitted cost-model link parameters (needs the cost model:
-                  not ported yet; must stay None).
+                  every fractal bucket (other schedules have no wire codec:
+                  their buckets stay uncompressed); "auto" → the autotuner
+                  picks a codec per bucket.
+    link        : ``cost_model.LinkParams`` the autotuner prices with; None
+                  → the reference's analytic ``TPU_V5E_ICI`` (a TPU's
+                  parameter set: links fitted on the card are ROADMAP A13).
     """
 
     sync_axes: Tuple[str, ...] = ("data",)
@@ -44,7 +49,7 @@ class BSPConfig:
     bucket_mb: Union[float, str, None] = None
     overlap: bool = True
     bucket_codec: Optional[str] = None
-    link: Any = None
+    link: Optional[LinkParams] = None
 
     def __post_init__(self):
         if self.schedule != "auto" and \
@@ -74,17 +79,18 @@ def make_codec(name: Optional[str]):
 
 def resolve_schedule(cfg: BSPConfig, world: int,
                      payload_bytes: float) -> str:
-    """Concrete schedule name for this config.  "auto" needs the cost-model
-    autotuner (ROADMAP A3) and raises."""
-    del world, payload_bytes
-    if cfg.schedule == "auto":
-        raise NotImplementedError(
-            "schedule='auto' needs the cost model and autotuner (ROADMAP "
-            "A3), not ported yet")
-    return cfg.schedule
+    """Concrete schedule name for this config: "auto" → the autotuner's
+    pick for ``world`` ranks (mesh shape ``(world,)``) and the payload,
+    priced with ``cfg.link`` when one is given."""
+    if cfg.schedule != "auto":
+        return cfg.schedule
+    from .autotune import pick_schedule
+    if cfg.link is not None:
+        return pick_schedule((world,), payload_bytes, link=cfg.link)
+    return pick_schedule((world,), payload_bytes)
 
 
-def sync_gradients(grads: Sequence[Any], cfg: BSPConfig, world: int,
+def sync_gradients(grads: Sequence, cfg: BSPConfig, world: int,
                    mean: bool = True):
     """All-reduce rank-stacked gradient leaves (each ``[W, *shape]``) with
     the configured schedule, bucketed by the SuperstepEngine; mean over

@@ -18,8 +18,10 @@ One superstep, in the reference's order (trainer.py:355-417):
   pack         rank r's gradients into row r of each bucket, in the
                reference's leaf order (``weights.reference_leaves``);
   per bucket   EF on the codec'd buckets (``corrected - res``, literally),
-               reduce-scatter (with the wire codec on every halving hop:
-               the B1/B2 decode-add kernels on the card), ZeRO-1 AdamW on
+               reduce-scatter with the bucket's schedule (the fractal one
+               with the wire codec on every halving hop: the B1/B2
+               decode-add kernels on the card; any other through its
+               Schedule-IR all-reduce and a slice), ZeRO-1 AdamW on
                each rank's shard, all-gather of the updated shards;
   barrier      one fsync token closes the superstep.
 
@@ -103,13 +105,14 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
     rev = C.bit_reversed_index(world, dev)   # raises unless a power of two
     shapes = reference_leaves(T.init_params(cfg, device="meta"), cfg)
     # the flat layout is f32 (grads and moments are f32 whatever the param
-    # dtype)
-    engine = engine_for(shapes, bsp, world, force_dtype=torch.float32)
+    # dtype); zero1 prices the picks as this lowering runs them
+    engine = engine_for(shapes, bsp, world, force_dtype=torch.float32,
+                        zero1=True)
     bucket_codecs = engine.bucket_codecs
     has_codec = any(c is not None for c in bucket_codecs)
     wire_codecs = bucket_codecs if bsp.bucket_codec is not None \
         else (None,) * engine.n_buckets
-    print(f"superstep: {engine.describe()} (link={engine.link_name})")
+    print(f"superstep: {engine.describe()} (link={engine.link.name})")
     layout = ",".join(f"{b.offset}+{b.length}" for b in engine.buckets)
     layout_tag = "zero1:" + hashlib.sha1(
         f"w{world}:{layout}".encode()).hexdigest()[:12]

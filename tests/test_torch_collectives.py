@@ -145,22 +145,34 @@ def test_barrier_tokens_match_reference(W, level):
 
 
 def test_ir_schedules_raise_and_worlds_are_checked():
-    x = torch.zeros(4, 512)
-    for fn in (C.ring_all_reduce, C.xy_all_reduce, C.naive_all_reduce,
-               C.hierarchical_all_reduce, C.ir_all_reduce):
-        with pytest.raises(NotImplementedError, match="Schedule IR"):
-            fn(x)
+    """Every schedule's entry point runs (each == the exact sum over ranks
+    on integer payloads), "auto" resolves to the reference's pick, and the
+    world and payload checks still raise."""
+    from repro.core.bsp import BSPConfig as JBSPConfig
+    from repro.core.bsp import resolve_schedule as jresolve
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        -7, 8, (4, 512)).astype(np.float32))
+    total = x.sum(0).expand_as(x)
+    for got in (C.ring_all_reduce(x), C.xy_all_reduce(x, (2, 2)),
+                C.naive_all_reduce(x), C.hierarchical_all_reduce(x, 2),
+                C.ir_all_reduce(x, C.schedule_ir.build_program("tree", (4,)))):
+        assert torch.equal(got, total)
     for schedule in ("ring", "xla"):
-        with pytest.raises(NotImplementedError, match="Schedule IR"):
-            C.reduce_scatter(x, schedule)
+        shard = C.reduce_scatter(x, schedule)
+        assert torch.equal(C.all_gather_flat(shard), total)
     with pytest.raises(ValueError, match="unknown schedule"):
         C.reduce_scatter(x, "bogus")
     with pytest.raises(ValueError, match="power-of-two"):
         C.fractal_reduce_scatter(torch.zeros(3, 384))
     with pytest.raises(ValueError, match="divisible"):
         C.fractal_reduce_scatter(torch.zeros(4, 6))
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        resolve_schedule(BSPConfig(schedule="auto"), 4, 1e6)
+    for payload in (1e3, 1e6, 1e9):
+        for world in (4, 8):
+            assert resolve_schedule(BSPConfig(schedule="auto"), world,
+                                    payload) == \
+                jresolve(JBSPConfig(schedule="auto"), (world,), payload)
+    assert resolve_schedule(BSPConfig(schedule="auto"), 6, 1e6) in \
+        ("ring", "xy", "naive")
     assert resolve_schedule(BSPConfig(), 4, 1e6) == "fractal"
 
 

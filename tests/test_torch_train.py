@@ -7,7 +7,10 @@
     sides switch to checkpointed query blocks;
   * ``SyntheticLM`` batches, equal;
   * three steps of ``make_bsp_train_step`` at world 4 with the fractal
-    schedule, for codecs none/bf16/int8 and for ``grad_accum`` 2, against
+    schedule, for codecs none/bf16/int8 and for ``grad_accum`` 2, and with
+    the train CLI's ``--schedule auto --bucket-mb auto --bucket-codec auto``
+    (every bucket's schedule, codec and boundary left to the autotuner; the
+    reference's plan and the port's must be the same), against
     the reference's step run once per module on a 4-device host mesh in a
     subprocess (this file's ``__main__``, which writes an npz).  Tolerances,
     with their reasons:
@@ -22,6 +25,7 @@
         world 4, where a noisy value falls on the other side of a rounding
         boundary; measured ~3e-3).  In every case at most 0.1 % of the
         elements are off by more than float noise (1e-6 + 1e-3 relative);
+        the auto run holds each bucket to its own codec's bound;
       - params after each step: AdamW's m̂/√v̂ turns a gradient's sign into
         a full-size step, so a tiny gradient that differs by float noise
         moves its parameter by up to 2·lr the other way: atol 2·lr per
@@ -29,7 +33,8 @@
         lr/10 (measured: none; the largest difference ~1e-4);
       - losses of steps 1-2: atol 1e-4 (they follow the params; measured
         ~1e-6).
-  * the CLI on ``--device cpu``, and its refusals.
+  * the CLI on ``--device cpu`` (a forced non-fractal schedule and each
+    auto value among its runs), and its refusals.
 
 The card's own test of the step is marked ``cuda`` and skips here.
 """
@@ -49,10 +54,19 @@ WORLD = 4
 STEPS = 3
 BATCH, SEQ, DATA_SEED = 8, 32, 3
 LR = 1e-3
-# (name, bucket_codec, grad_accum); every case buckets at 0.25 MB
+# (name, bucket_codec, grad_accum); every case but "auto" buckets at
+# 0.25 MB with the fractal schedule
 CASES = [("none", None, 1), ("bf16", "bf16", 1), ("int8", "int8", 1),
-         ("accum2", None, 2)]
+         ("accum2", None, 2), ("auto", "auto", 1)]
 BUCKET_MB = 0.25
+AUTO_FLAGS = ["--schedule", "auto", "--bucket-mb", "auto",
+              "--bucket-codec", "auto"]
+
+
+def _bsp_kwargs(name, codec):
+    if name == "auto":
+        return dict(schedule="auto", bucket_mb="auto", bucket_codec="auto")
+    return dict(schedule="fractal", bucket_mb=BUCKET_MB, bucket_codec=codec)
 
 
 def _acfg_kwargs():
@@ -69,6 +83,7 @@ def reference_main(out_path):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    from repro.core import superstep
     from repro.core.bsp import BSPConfig
     from repro.data.pipeline import DataConfig, SyntheticLM
     from repro.launch.mesh import make_mesh
@@ -87,8 +102,7 @@ def reference_main(out_path):
     out = {f"p0/{i}": np.asarray(l)
            for i, l in enumerate(jax.tree.leaves(params0))}
     for name, codec, accum in CASES:
-        bsp = BSPConfig(sync_axes=("data",), schedule="fractal",
-                        bucket_mb=BUCKET_MB, bucket_codec=codec)
+        bsp = BSPConfig(sync_axes=("data",), **_bsp_kwargs(name, codec))
         step, init_state = trainer.make_bsp_train_step(
             cfg, mesh, acfg, bsp, grad_accum=accum)
         # place the state as the step returns it, so the second step
@@ -102,6 +116,11 @@ def reference_main(out_path):
                  jax.device_put(ef, shd if codec else rep),
                  jax.device_put(count, rep))
         out[f"{name}/layout"] = np.array(init_state.superstep_layout)
+        eng = superstep.engine_for(
+            jax.eval_shape(lambda k: JT.init_params(cfg, k),
+                           jax.random.key(0)), bsp, (WORLD,),
+            force_dtype=jnp.float32, zero1=True)
+        out[f"{name}/plan"] = np.array(eng.describe())
         for s in range(STEPS):
             batch = {k: jnp.asarray(v) for k, v in data.batch(s).items()}
             *state, m = step(*state, batch)
@@ -233,13 +252,16 @@ def test_synthetic_batches_equal_reference(seed, B, Tlen):
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
 
 
-def _run_port(ref_run, codec, accum):
+def _run_port(ref_run, name, codec, accum):
     cfg = get_config(ARCH)
     params = _port_params(_ref_tree(ref_run))
+    # the auto case takes its config from the train CLI's own parse
+    bsp = train_cli.bsp_config(train_cli.parse_args(
+        ["--arch", ARCH] + AUTO_FLAGS)) if name == "auto" \
+        else BSPConfig(**_bsp_kwargs(name, codec))
     step, init_state = make_bsp_train_step(
-        cfg, AdamWConfig(**_acfg_kwargs()),
-        BSPConfig(bucket_mb=BUCKET_MB, bucket_codec=codec), WORLD,
-        grad_accum=accum, device="cpu")
+        cfg, AdamWConfig(**_acfg_kwargs()), bsp, WORLD, grad_accum=accum,
+        device="cpu")
     state = init_state(params)
     data = SyntheticLM(cfg, DataConfig(global_batch=BATCH, seq_len=SEQ,
                                        seed=DATA_SEED))
@@ -269,8 +291,9 @@ def _ref_tree(ref_run):
 
 @pytest.mark.parametrize("name,codec,accum", CASES)
 def test_bsp_steps_track_reference(ref_run, name, codec, accum):
-    got = _run_port(ref_run, codec, accum)
+    got = _run_port(ref_run, name, codec, accum)
     assert got["layout"] == str(ref_run[f"{name}/layout"])
+    assert got["engine"].describe() == str(ref_run[f"{name}/plan"])
     assert abs(got["loss0"] - float(ref_run[f"{name}/loss0"])) <= 2e-5
     for s in (1, 2):
         assert abs(got[f"loss{s}"] - float(ref_run[f"{name}/loss{s}"])) \
@@ -281,9 +304,11 @@ def test_bsp_steps_track_reference(ref_run, name, codec, accum):
     g = got["mu0"] / 0.1
     gref = ref_run[f"{name}/mu0"].reshape(WORLD, -1) / 0.1
     assert g.shape == gref.shape
-    rel = {None: 1e-5, "bf16": 2.0 ** -8, "int8": 2 / 127}[codec]
+    rels = {"none": 1e-5, "bf16": 2.0 ** -8, "int8": 2 / 127}
     off_total = n_total = 0
-    for b, s_off in zip(eng.buckets, eng.shard_offsets()):
+    for b, s_off, c in zip(eng.buckets, eng.shard_offsets(),
+                           eng.codec_names):
+        rel = rels[c]
         sl = slice(s_off, s_off + eng.shard_len(b))
         gb, rb = g[:, sl], gref[:, sl]
         gmax = float(np.abs(rb).max())
@@ -329,16 +354,37 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--schedule", "ring"], "fractal"),
-    (["--bucket-mb", "auto"], "auto"),
-    (["--bucket-codec", "auto"], "auto"),
-    (["--calibrate"], "calibrate"),
-    (["--checkpoint-dir", "ckpt"], "checkpoint"),
+    (["--schedule", "xla"], "A12"),
+    (["--calibrate"], "A13"),
+    (["--checkpoint-dir", "ckpt"], "A5"),
 ])
 def test_cli_refuses_unported_flags(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(["--arch", ARCH, "--device", "cpu", "--steps", "1"]
                        + extra)
+
+
+@pytest.mark.parametrize("extra,plan", [
+    (["--schedule", "ring", "--bucket-codec", "int8", "--bucket-mb",
+      "0.25"], "MB→ring, b1:"),
+    (["--bucket-mb", "auto"], "[dp]"),
+    (["--bucket-codec", "auto", "--bucket-mb", "0.25"], "+int8"),
+    (AUTO_FLAGS, "[dp]"),
+], ids=["ring", "bucket-mb-auto", "bucket-codec-auto", "all-auto"])
+def test_cli_runs_the_ported_flags(capsys, extra, plan):
+    """A forced non-fractal schedule (its codec normalised away) and each
+    auto value train through the CLI; the printed plan shows the pick."""
+    out = train_cli.main(["--arch", ARCH, "--device", "cpu", "--devices",
+                          "4", "--steps", "1", "--batch", "8", "--seq",
+                          "32"] + extra)
+    text = capsys.readouterr().out
+    assert plan in text and "loss: first=" in text
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 1 and all(np.isfinite(losses))
+    eng = out["engine"]
+    if "ring" in extra:
+        assert set(eng.schedules) == {"ring"}
+        assert set(eng.codec_names) == {"none"}
 
 
 def test_cli_without_cuda_raises(monkeypatch):
