@@ -42,7 +42,9 @@ The quickest proof that the port starts on the card.  Phases, in order
                 before and read just after.  Then paged attention (B7) in f32 and bf16
                 (bf16 per output row, relative to the row's RMS), at
                 gemma2-2b's shape
-                (Hkv 4, G 2, d 256, bs 16) and three more shapes, ragged
+                (Hkv 4, G 2, d 256, bs 16), three more shapes and the
+                decode shapes of qwen2.5-3b (G 8), phi4-mini-3.8b (G 3),
+                qwen3-moe (G 16) and granite-34b (G 48), all d 128, ragged
                 lengths up to 8192 over sentinel-padded tables, window
                 None / 4096 / small, softcap None / 50; then time kernel
                 (split kernel + merge), plain version and the gather +
@@ -89,6 +91,11 @@ The quickest proof that the port starts on the card.  Phases, in order
                 and through the gather-then-attend lowering: logits agree;
                 one more under torch.cuda.set_sync_debug_mode("error"):
                 the decode forward makes no synchronising call;
+  3q. serve   — phases 3 and 4 for qwen2.5-3b at full published width,
+                all 36 layers (QKV bias, tied embeddings, GQA kv 2): B7
+                and its merge 36 x decode steps each, logits within
+                ``QWEN_LOGIT_ATOL``, tok/s, TTFT, decode step, idle share,
+                peak memory;
   5. train    — ``repro_torch.launch.train.run`` on gemma2-2b at its
                 published widths with ONE cut, 26 -> 8 layers (memory: see
                 ``TRAIN_CUT``): a BSP world of 4 ranks on the card, fractal
@@ -110,6 +117,20 @@ The quickest proof that the port starts on the card.  Phases, in order
   5c. forced  — one step each of ``--schedule ring`` and ``tree`` with
                 ``--bucket-codec int8`` (normalised away) at 2 layers: no
                 decode-add launch, a finite loss;
+  5d. README  — the README's training command at full width: qwen2.5-3b
+                cut to 10 layers (``QWEN_TRAIN_CUT``), world 4, all auto,
+                8 x 1024 tokens, 3 steps: the plan, B1/B2 launches = steps
+                x buckets with the codec x 2, every bucket's real
+                gradients through B2 and its plain version bit for bit,
+                step time, tokens/s, peak memory, idle share;
+  5e. soak    — ``runtime.soak.run_train_soak`` at the reference's
+                ``TrainSoakConfig`` on qwen2.5-3b cut to 2 layers with
+                1024-token rows: uneven shares actuated for the slow rank,
+                the killed rank's world re-meshed 8 -> 4 onto a level-2
+                fsync domain, the params restored from a checkpoint and
+                the replay checked by ``check_train_soak``; one step each
+                of even and uneven shares first, bit for bit; every save's
+                and the restore's bytes and seconds;
   6. serve    — ``repro_torch.launch.serve.run`` on DeepSeek-V3 at its
                 published widths with ONE cut, 61 -> 5 layers (3 dense MLA
                 + 2 MLA+MoE, plus the MTP module; memory: see ``DS_CUT``),
@@ -187,12 +208,20 @@ BF16_ROW_RTOL = 5e-2
 # the kernel phase's cases: ragged rows past the 4096 window, over
 # sentinel-padded tables; gemma2-2b's shape; the served query-head group
 # (G 2) at one 16-byte chunk per lane in f32 too (d 128); wider groups;
-# G above 8
+# G above 8; then the decode shapes of the attention archs of slice 9, all
+# at d 128: qwen2.5-3b (Hkv 2, G 8: one full pass of kMaxG = 8 query
+# heads), phi4-mini-3.8b (Hkv 8, G 3, padded to 4), qwen3-moe-235b-a22b
+# (Hkv 4, G 16: two passes over the KV rows) and granite-34b (MQA, G 48:
+# six passes)
 KERNEL_LENGTHS = [8192, 6001, 4097, 300, 17, 1]
 KERNEL_SHAPES = [dict(Hkv=4, G=2, d=256, bs=16),
                  dict(Hkv=4, G=2, d=128, bs=16),
                  dict(Hkv=2, G=4, d=128, bs=16),
-                 dict(Hkv=1, G=12, d=64, bs=8)]
+                 dict(Hkv=1, G=12, d=64, bs=8),
+                 dict(Hkv=2, G=8, d=128, bs=16),
+                 dict(Hkv=8, G=3, d=128, bs=16),
+                 dict(Hkv=4, G=16, d=128, bs=16),
+                 dict(Hkv=1, G=48, d=128, bs=16)]
 # full-width logits, kernel vs gather-then-attend lowering: both bf16
 # models; their attention outputs differ by bf16 rounding (2^-8
 # relative) and 26 residual layers compound it, on logits of magnitude
@@ -300,6 +329,41 @@ SERVE_ARGS = ["--arch", "gemma2-2b", "--device", "cuda", "--kv-mode",
               "--block-size", "16", "--prefill-chunk", "64", "--clock",
               "wall"]
 DS_SERVE_ARGS = ["--arch", "deepseek-v3-671b"] + SERVE_ARGS[2:]
+
+# Slice 9.  [3q] serves qwen2.5-3b at full published width, all 36 layers
+# (3,085,938,688 params, 6.2 GB in bf16; 36 x 2 x 2 heads x 128 x 2 B =
+# 36,864 B of paged KV a token), with the gemma phase's traffic.
+QWEN_SERVE_ARGS = ["--arch", "qwen2.5-3b"] + SERVE_ARGS[2:]
+# full-width logits, B7 vs the gather lowering, both bf16: as for gemma
+# (LOGIT_ATOL), the attention outputs differ by bf16 rounding in each of
+# 36 layers; the tied head of N(0, 0.02) rows against an RMS-normed state
+# of width 2048 gives logits of magnitude ~4-5 (gemma's: 8.2, with 26
+# layers an H100 80GB HBM3 at 700 W read 0.098 against 0.25)
+QWEN_LOGIT_ATOL = 0.25
+# [5d] the README's training command at full width: qwen2.5-3b's widths,
+# vocab and tied embeddings with ONE cut, 36 -> 10 layers: 1,081,936,896
+# params, 45.4 GB at the train phase's 42 B per parameter (12 layers would
+# be 51.9 GB before activations; gemma's 8-layer phase peaked 17 GB above
+# its count).  World 4, every choice left to the autotuner, 8 x 1024
+# tokens, 3 steps.  No checkpoint: each f32 moment vector (4.33 GB) and
+# the int8 codec's EF vector (4 x 4.33 GB) is one leaf past msgpack's
+# 4 GiB bin (ROADMAP C7).
+QWEN_TRAIN_CUT = dict(num_layers=10, layer_pattern=("attn",) * 10)
+QWEN_TRAIN_ARGS = ["--arch", "qwen2.5-3b", "--device", "cuda", "--devices",
+                   "4", "--steps", "3", "--batch", "8", "--seq", "1024",
+                   "--lr", "3e-4", "--seed", "0"] + TRAIN_AUTO
+# [5e] the reference's fault-injected train soak (``TrainSoakConfig``'s
+# defaults: tree (2, 4), 16 micro-batches of 1 row, rank 3 slow x3 at
+# steps 4-10, rank 5 killed at step 12, a checkpoint every 4 steps, 22
+# steps, no codec) at qwen2.5-3b's widths with TWO cuts: 36 -> 2 layers
+# (465,320,960 params: the packed pairs make world 8 cost 2 + 64 + 8 = 74
+# B per parameter, 34 GB, and a checkpoint of bf16 params and two f32
+# moment vectors is 4.65 GB) and seq_len 16 -> 1024 (the other train
+# phases' length).  Then one step each of even and uneven shares at this
+# width: the params must be bit for bit the same.
+SOAK_CUT = dict(num_layers=2, layer_pattern=("attn",) * 2)
+SOAK_SEQ = 1024
+SOAK_SHARES = ((2,) * 8, (3, 1, 2, 2, 2, 2, 2, 2))
 
 
 def _smi() -> str:
@@ -2546,27 +2610,31 @@ def phase_schedules(torch, dev):
     return timings
 
 
-def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss):
+def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss,
+                     argv=None):
     """The slice's main path: ``launch.train.run`` with ``TRAIN_AUTO``
     (schedule, codec and bucket boundaries all left to the autotuner), its
     counts set to 0 just before and read just after.  Each codec's count
     must equal steps x (buckets with that codec) x log2(world), the losses
     must be finite and step 0's must equal ``first_loss`` (phase 5's, the
-    same params and batch before any sync).  Then three more steps of the
-    same configuration for the idle share, and every bucket of the plan
-    that carries a codec held to the plain versions on real gradients
-    (``real_bucket_check``), so each hop length the auto path gives B1/B2
-    is checked.  Returns the launch counts."""
+    same params and batch before any sync; not checked when None).  Then
+    three more steps of the same configuration for the idle share, and
+    every bucket of the plan that carries a codec held to the plain
+    versions on real gradients (``real_bucket_check``), so each hop length
+    the auto path gives B1/B2 is checked.  ``argv`` is the whole command
+    line (default: ``TRAIN_ARGS`` + ``TRAIN_AUTO``; phase 5d gives
+    ``QWEN_TRAIN_ARGS``).  Returns the launch counts."""
     import numpy as np
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.trainer import make_bsp_train_step
-    args = _train_parse(TRAIN_AUTO)
+    args = train_cli.parse_args(argv) if argv else _train_parse(TRAIN_AUTO)
     dev = torch.device(args.device)
     print(f"  {cfg.name} at published widths, cut to {cfg.num_layers} "
-          f"layers; world {args.devices}; {' '.join(TRAIN_AUTO)}")
+          f"layers; world {args.devices}; batch {args.batch} x {args.seq}; "
+          f"{' '.join(TRAIN_AUTO)}")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
@@ -2578,7 +2646,7 @@ def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss):
     losses = [h["loss"] for h in hist]
     if len(losses) != args.steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"auto: losses {losses}")
-    if losses[0] != first_loss:
+    if first_loss is not None and losses[0] != first_loss:
         raise AssertionError(f"auto: step-0 loss {losses[0]!r}, the fixed "
                              f"run's {first_loss!r}")
     hops = args.devices.bit_length() - 1
@@ -2596,10 +2664,10 @@ def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss):
     for h in hist:
         print(f"  auto step {h['step']}: loss {h['loss']:.4f}, "
               f"{h['sec']:.3f} s, {tokens / h['sec']:.0f} tokens/s")
+    same = "" if first_loss is None else " == the fixed run's"
     print(f"  auto: launches {counts} = {args.steps} steps x buckets with "
-          f"each codec x {hops} hops; step-0 loss {losses[0]!r} == the "
-          f"fixed run's; peak memory {peak / 2**30:.2f} GiB "
-          f"({peak / 1e9:.1f} GB)")
+          f"each codec x {hops} hops; step-0 loss {losses[0]!r}{same}; "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
     del out
     step, init_state = make_bsp_train_step(
         cfg, AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -2648,6 +2716,245 @@ def phase_train_forced(torch, tops, cfg):
         seen[name] = counts
         del out
     return seen
+
+
+# ---------------------------------------------------------------------------
+# slice 9: qwen2.5-3b served and trained, the fault-injected train soak
+# ---------------------------------------------------------------------------
+
+
+def qwen_config(cut=None):
+    """qwen2.5-3b at its published widths, cut in depth to ``cut``."""
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config("qwen2.5-3b"), **(cut or {}))
+
+
+def _soak_dir(need: int):
+    """A new directory for the soak's checkpoints on whichever of the
+    temporary directory and the checkout's ``build/`` has more room; it
+    must have ``need`` bytes free."""
+    import shutil
+    import tempfile
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = {Path(tempfile.gettempdir()): 0, build: 0}
+    for d in free:
+        free[d] = shutil.disk_usage(d).free
+    where = max(free, key=free.get)
+    print("  checkpoint room: " + ", ".join(
+        f"{d} {f / 1e9:.1f} GB free" for d, f in free.items())
+        + f"; {need / 1e9:.1f} GB needed (keep 3 + one being written)")
+    if free[where] < need:
+        raise AssertionError(f"no room for the soak's checkpoints: "
+                             f"{free[where] / 1e9:.1f} GB free, "
+                             f"{need / 1e9:.1f} GB needed")
+    return tempfile.mkdtemp(prefix="soak-", dir=where)
+
+
+def _differing_bits(torch, a, b):
+    """(elements, bits) in which two same-dtype tensors differ."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    x = a.view(ints) ^ b.view(ints)
+    elems = int((x != 0).sum())
+    bits = sum(int(((x >> k) & 1).sum()) for k in range(8 * a.element_size())
+               ) if elems else 0
+    return elems, bits
+
+
+def shares_bit_check(torch, cfg, scfg, dev):
+    """One step each of ``SOAK_SHARES`` (even, then uneven) at world 8 from
+    the same params and micro-batches: prints whether the params after the
+    step (and the losses) are the same bit for bit, and how many elements
+    and bits differ if not.  Returns the differing elements."""
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           reshard_for_shares)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import make_bsp_train_step
+    from repro_torch.weights import reference_leaves
+    world = math.prod(scfg.tree_shape)
+    params = T.init_params(cfg, 0, device=dev)
+    raw = SyntheticLM(cfg, DataConfig(
+        global_batch=scfg.microbatches * scfg.micro_rows,
+        seq_len=scfg.seq_len, seed=scfg.seed)).batch(0)
+    acfg = AdamWConfig(lr=scfg.lr, warmup_steps=1,
+                       total_steps=scfg.total_steps, grad_clip=0.0)
+    outs = []
+    for shares in SOAK_SHARES:
+        step, init_state = make_bsp_train_step(
+            cfg, acfg, BSPConfig(schedule="fractal"), world, device=dev,
+            shares=shares)
+        state = init_state(_clone_tree(params))
+        t0 = time.perf_counter()
+        state, m = step(state, reshard_for_shares(raw, shares))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sec = time.perf_counter() - t0
+        flat = torch.cat([t.detach().reshape(-1)
+                          for leaf in reference_leaves(state.params, cfg)
+                          for t in leaf.parts])
+        outs.append((flat, m["loss"].item()))
+        print(f"  shares {shares}: loss {m['loss'].item()!r}, one step "
+              f"{sec:.3f} s")
+        del state, step, init_state
+    (a, la), (b, lb) = outs
+    elems, bits = _differing_bits(torch, a, b)
+    verdict = "BIT-IDENTICAL" if not elems and la == lb else \
+        f"DIFFER in {elems} of {a.numel()} params ({bits} bits)"
+    print(f"  uneven shares vs even shares at width ({a.numel()} params, "
+          f"{a.dtype}): {verdict}; losses {la!r} / {lb!r}")
+    return elems
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone()
+
+
+def exact_resume_check(torch, cfg, dev, where, seq):
+    """Exact resume on this device: the BSP step at world 4 (fractal, no
+    codec, 4 rows of ``seq`` tokens a step) for 4 steps straight, against
+    2 steps, a checkpoint, a restore into a fresh state and 2 more steps.
+    Prints whether the params (and losses) are the same bit for bit; on
+    the card that needs the same GEMM algorithms before and after the
+    restore.  Returns the differing elements."""
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop, resume_or_init
+    from repro_torch.runtime.trainer import make_bsp_train_step
+    step, init_state = make_bsp_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        BSPConfig(schedule="fractal"), 4, device=dev)
+    data = SyntheticLM(cfg, DataConfig(global_batch=4, seq_len=seq, seed=1))
+    meta = {"superstep_layout": init_state.superstep_layout}
+
+    def run(state, start, stop, ckpt=None):
+        loop = TrainLoop(step_fn=step, state=state, data=data,
+                         cfg=LoopConfig(total_steps=stop, log_every=0,
+                                        checkpoint_every=2,
+                                        checkpoint_dir=ckpt),
+                         start_step=start, ckpt_meta=meta)
+        loop.run()
+        return loop
+
+    first = run(init_state(T.init_params(cfg, 1, device=dev)), 0, 2, where)
+    straight = run(first.state, 2, 4)
+    # every leaf but the step, widened to f32 (exactly)
+    flat_a = torch.cat([t.reshape(-1).float() for t in
+                        straight.state.checkpoint_leaves()[:-1]])
+    losses_a = [h["loss"] for h in first.history + straight.history]
+    del first, straight
+    t0 = time.perf_counter()
+    state, start = resume_or_init(
+        where, init_state(T.init_params(cfg, 2, device=dev)),
+        expect_meta=meta)
+    restore_s = time.perf_counter() - t0
+    resumed = run(state, start, 4)
+    flat_b = torch.cat([t.reshape(-1).float() for t in
+                        resumed.state.checkpoint_leaves()[:-1]])
+    losses_b = [h["loss"] for h in resumed.history]
+    del resumed, state
+    elems, bits = _differing_bits(torch, flat_a, flat_b)
+    same = not elems and losses_a[2:] == losses_b
+    print(f"  exact resume ({cfg.name}, world 4, 4 x {seq} tokens a step): "
+          f"4 steps straight against 2, a checkpoint, a restore "
+          f"({restore_s:.2f} s) and 2 more: params and moments "
+          + ("BIT-IDENTICAL" if same else
+             f"DIFFER in {elems} elements ({bits} bits)")
+          + f"; losses {losses_a[2:]} / {losses_b}")
+    return elems
+
+
+def phase_train_soak(torch, cfg, dev, scfg=None):
+    """The reference's fault-injected train soak through
+    ``runtime.soak.run_train_soak`` and ``check_train_soak`` on ``cfg``
+    (qwen2.5-3b cut to ``SOAK_CUT``), with ``TrainSoakConfig``'s defaults
+    but ``seq_len`` ``SOAK_SEQ``: a slow rank actuates uneven shares, a
+    killed rank re-meshes 8 -> 4 onto a level-2 fsync domain, the
+    parameters come back from a checkpoint and the run replays.  Prints
+    the timeline, every save's and the restore's bytes and seconds and the
+    peak memory; raises on any failure ``check_train_soak`` reports.
+    Returns the result."""
+    import dataclasses
+    import shutil
+    from repro_torch.models.registry import count_params
+    from repro_torch.runtime.soak import (TrainSoakConfig, check_train_soak,
+                                          run_train_soak)
+    scfg = scfg or dataclasses.replace(
+        TrainSoakConfig(), arch=cfg.name, seq_len=SOAK_SEQ)
+    base = TrainSoakConfig()
+    n = count_params(cfg)
+    print(f"  {cfg.name}: {n:,} params at published widths; cuts: "
+          f"{qwen_config().num_layers} -> {cfg.num_layers} layers (chip "
+          f"time, checkpoint size); seq_len {base.seq_len} -> "
+          f"{scfg.seq_len} (the other train phases' length); tree "
+          f"{scfg.tree_shape}, {scfg.microbatches} micro-batches of "
+          f"{scfg.micro_rows} row, faults {scfg.fault_spec!r}, a "
+          f"checkpoint every {scfg.checkpoint_every} steps, "
+          f"{scfg.total_steps} steps")
+    shares_bit_check(torch, cfg, scfg, dev)
+    ckpt_bytes = 10 * n      # bf16 params + two f32 moment vectors
+    where = Path(_soak_dir(4 * ckpt_bytes))
+    try:
+        exact_resume_check(torch, cfg, dev, str(where / "resume"),
+                           scfg.seq_len)
+        shutil.rmtree(where / "resume", ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = check_train_soak(run_train_soak(scfg, str(where / "soak"),
+                                              device=dev, cfg=cfg), scfg)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    rec = res.recovery or {}
+    tokens = scfg.microbatches * scfg.micro_rows * scfg.seq_len
+    restarted = False
+    for i, h in enumerate(res.history):
+        if i and h["step"] <= res.history[i - 1]["step"]:
+            restarted = True
+        world = rec.get("new_world") if restarted else \
+            math.prod(scfg.tree_shape)
+        print(f"  soak step {h['step']:2d} (world {world}): loss "
+              f"{h['loss']:.6f}, {h['sec']:.3f} s, "
+              f"{tokens / h['sec']:.0f} tokens/s")
+    for ev in res.rebalance[:1] + res.rebalance[-1:]:
+        print(f"  rebalance at step {ev['step']}: stragglers "
+              f"{ev['stragglers']} -> shares {ev['shares']}")
+    print(f"  actuated shares {res.actuated_shares}; recovery {rec}")
+    for s in res.saves:
+        print(f"  save at step {s['step']}: {s['bytes']:,} bytes, host copy "
+              f"{s['copy_s']:.3f} s, encode + write + fsync "
+              f"{s['write_s']:.3f} s ({s['bytes'] / s['write_s'] / 1e9:.2f} "
+              "GB/s)")
+    if res.restore:
+        r = res.restore
+        print(f"  restore of step {r['step']}: {r['bytes']:,} bytes in "
+              f"{r['seconds']:.3f} s (read, checksum, decode, to the "
+              "device)")
+    if res.replay_pairs:
+        a, b = res.replay_pairs[0]
+        print(f"  first replayed loss {b!r} against the recorded {a!r}: "
+              + ("bit for bit" if a == b else f"differs by {abs(a - b):.3e}")
+              + f"; replay pairs {res.replay_pairs}")
+    print(f"  soak: {len(res.history)} steps in {wall:.1f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); check_train_soak: "
+          + ("no failure" if res.ok else f"FAILURES {res.failures}"))
+    if not res.ok:
+        raise AssertionError(f"train soak failed: {res.failures}")
+    if rec.get("old_world") != 8 or rec.get("new_world") != 4 or \
+            rec.get("level") != 2:
+        raise AssertionError(f"re-mesh {rec}: want 8 -> 4 ranks on a "
+                             "level-2 domain")
+    return res
 
 
 def _ptxas_summary(log: str):
@@ -2831,6 +3138,16 @@ def main(argv=None) -> int:
 
     print("[4] one decode step: kernel vs gather lowering", flush=True)
     phase_decode_step(torch, gemma, dev, LOGIT_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qwen = qwen_config()
+    print(f"[3q] serve qwen2.5-3b at full width ({qwen.num_layers} layers); "
+          "one decode step: kernel vs gather lowering", flush=True)
+    q_launches, q_merges = phase_serve(torch, ops, qwen, QWEN_SERVE_ARGS)
+    phase_decode_step(torch, qwen, dev, QWEN_LOGIT_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     print(f"[5] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
           f"{plan.world}", flush=True)
@@ -2849,6 +3166,21 @@ def main(argv=None) -> int:
     print(f"[5c] train gemma2-2b ({cfg2.num_layers} of 26 layers) with a "
           f"forced non-fractal schedule", flush=True)
     phase_train_forced(torch, tops, cfg2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qwen10 = qwen_config(QWEN_TRAIN_CUT)
+    print(f"[5d] the README's command at full width: train qwen2.5-3b "
+          f"({qwen10.num_layers} of 36 layers) at world 4, every choice "
+          "left to the autotuner", flush=True)
+    qwen_launches = phase_train_auto(torch, tops, tref, codecs, qwen10, None,
+                                     argv=QWEN_TRAIN_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    soak_cfg = qwen_config(SOAK_CUT)
+    print(f"[5e] the fault-injected train soak on qwen2.5-3b "
+          f"({soak_cfg.num_layers} of 36 layers)", flush=True)
+    phase_train_soak(torch, soak_cfg, dev)
 
     # the gemma phases' params, caches and train state are gone; hand their
     # cached blocks back before DeepSeek's 54.6 GB of weights
@@ -2869,8 +3201,9 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/paged_attention/csrc/"
                "paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:90",
-        launches=launches, merge_launches=merges, max_abs_err=max_err,
-        max_err=max_err,
+        launches=launches, merge_launches=merges,
+        qwen_launches=q_launches, qwen_merge_launches=q_merges,
+        shapes=KERNEL_SHAPES, max_abs_err=max_err, max_err=max_err,
         max_row_rel_err=max_rel, **timing)]
     for name, codec, line in (("decode_add_bf16", "bf16", 119),
                               ("decode_add_int8", "int8", 140)):
@@ -2879,6 +3212,7 @@ def main(argv=None) -> int:
             source="src/repro_torch/kernels/tree_reduce/csrc/tree_reduce.cu",
             replaces=f"{tr}:{line}", launches=train_launches[codec],
             auto_launches=auto_launches[codec],
+            qwen_auto_launches=qwen_launches[codec],
             max_abs_err=codec_err[codec], elements=hop,
             **codec_timing[codec]))
     kernels.append(dict(

@@ -18,7 +18,14 @@ Ported so far, slice by slice:
   4. the public kernel ops — ``kernels.tree_reduce`` (``tree_reduce``,
      ``encode_rows``, ``coded_tree_reduce``: B3, B4), ``kernels.gemm``
      (B6) and ``kernels.flash_attention`` (B5 forward, backward by
-     recompute).
+     recompute);
+  8. the Schedule IR, its simulator, cost model and autotuner — the rest
+     of ``core`` and ``launch.table1``;
+  9. qwen2.5-3b, phi4-mini-3.8b, granite-34b and qwen3-moe-235b-a22b
+     (``configs``), uneven micro-batch shares (``runtime.trainer``,
+     ``data``), checkpoints (``checkpoint``, with its own msgpack codec)
+     and fault tolerance (``runtime.chaos``, ``fault_tolerance``,
+     ``elastic``, ``loop``, ``soak``).
 Every Pallas kernel of the reference now has a counterpart here.  Whatever
 else is not ported raises ``NotImplementedError``.
 

@@ -8,8 +8,8 @@ reference's exactly for the same config and seed.
   * host sharding: host h of H serves global-batch rows [h·B/H, (h+1)·B/H);
   * background prefetch (thread + queue).
 
-``reshard_for_shares`` (uneven per-rank micro-batches) comes with the
-trainer's ``shares=`` path in a later slice; frontend embeddings with the
+``reshard_for_shares`` lays a batch out for the trainer's uneven
+per-rank micro-batch ``shares=``.  Frontend embeddings come with the
 frontend architectures.
 """
 
@@ -18,11 +18,46 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
+
+
+def reshard_for_shares(batch: Dict[str, np.ndarray],
+                       shares: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Re-shard a host batch for UNEVEN per-rank micro-batch shares.
+
+    Input layout: ``sum(shares) × mb`` rows of true data — micro-batch j
+    occupies rows ``[j*mb, (j+1)*mb)``.  Output layout: the padded
+    per-rank grid the trainer's ``shares=`` path consumes — rank r owns
+    rows ``[r*n_max*mb, (r+1)*n_max*mb)`` with its ``shares[r]`` assigned
+    micro-batches first (contiguous from the global sequence, so every
+    micro-batch is computed exactly once across ranks) and zero padding
+    after (never touched: the trainer's loop over rank r's micro-batches
+    stops at ``shares[r]``).  Even shares are the identity layout, so this
+    transform composes freely with the straggler-rebalance actuator.
+    """
+    shares = [int(s) for s in shares]
+    if not shares or any(s < 1 for s in shares):
+        raise ValueError(f"shares must be >= 1 each, got {shares}")
+    m_total, n_max = sum(shares), max(shares)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % m_total:
+        raise ValueError(f"batch rows {rows} not divisible by "
+                         f"sum(shares) = {m_total}")
+    mb = rows // m_total
+    out = {}
+    for k, v in batch.items():
+        padded = np.zeros((len(shares) * n_max * mb,) + v.shape[1:], v.dtype)
+        off = 0
+        for r, s_r in enumerate(shares):
+            padded[r * n_max * mb:(r * n_max + s_r) * mb] = \
+                v[off * mb:(off + s_r) * mb]
+            off += s_r
+        out[k] = padded
+    return out
 
 
 @dataclass(frozen=True)

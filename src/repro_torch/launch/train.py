@@ -1,8 +1,7 @@
 """Training entry point: the FractalSync BSP superstep on one device.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b-smoke \
-      --device cpu --devices 4 --steps 3 --schedule auto --bucket-mb auto \
-      --bucket-codec auto
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b-smoke \
+      --device cpu --steps 8 --batch 4 --seq 64 --schedule auto --devices 4
 
 Port of ``repro.launch.train`` with the same flags, plus ``--device``
 (default ``cuda``; a CUDA request without CUDA raises).  ``--devices N`` is
@@ -15,11 +14,13 @@ codec on every hop (``--bucket-codec``, or ``auto`` per bucket; on the card
 the hops run the hand-written decode-add kernels), updated by ZeRO-1 AdamW
 and all-gathered; one fsync barrier closes each step.  The engine's plan
 (per-bucket size, schedule and codec) is printed.  Random-init params come
-from ``--seed``.
+from ``--seed``.  ``--checkpoint-dir`` saves the state every
+``--checkpoint-every`` steps and at the end, in the reference's format, and
+a run pointed at a directory that holds a checkpoint resumes from its
+latest one (it must have the same superstep layout).
 
 Not ported yet, and refused: ``--schedule xla`` (the GSPMD step, ROADMAP
-A12), ``--calibrate`` (link calibration on the card, A13),
-``--checkpoint-dir`` (checkpointing, A5).
+A12), ``--calibrate`` (link calibration on the card, A13).
 
 ``run(cfg, args)`` runs a parsed command line on a given config (e.g. one
 cut in depth); ``main`` parses, looks the config up and calls it.
@@ -70,9 +71,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--devices", type=int, default=0,
                     help="BSP world: ranks stacked on the one device "
                          "(0 → 1)")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=50,
-                    help="(checkpointing is not ported)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save checkpoints here, and resume from the latest "
+                         "one it holds")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -87,10 +89,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--calibrate times collectives on the card to fit the link, "
             "not ported yet (ROADMAP A13)")
-    if args.checkpoint_dir is not None:
-        raise NotImplementedError(
-            "--checkpoint-dir: checkpointing is not ported yet (ROADMAP "
-            "A5)")
 
 
 def bsp_config(args):
@@ -113,7 +111,7 @@ def run(cfg, args):
     from repro_torch.models.registry import count_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime import trainer
-    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop, resume_or_init
 
     dev = resolve_device(args.device)
     world = args.devices or 1
@@ -125,10 +123,19 @@ def run(cfg, args):
     step_fn, init_state = trainer.make_bsp_train_step(
         cfg, acfg, bsp_config(args), world, grad_accum=args.grad_accum,
         device=dev)
+    ckpt_meta = {"superstep_layout": init_state.superstep_layout}
+    state, start = resume_or_init(args.checkpoint_dir, init_state(params),
+                                  expect_meta=ckpt_meta)
+    if start:
+        print(f"resumed from {args.checkpoint_dir} at step {start}")
+    del params
     data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
                                        seq_len=args.seq, seed=args.seed))
-    loop = TrainLoop(step_fn=step_fn, state=init_state(params), data=data,
-                     cfg=LoopConfig(total_steps=args.steps))
+    loop = TrainLoop(step_fn=step_fn, state=state, data=data,
+                     cfg=LoopConfig(total_steps=args.steps,
+                                    checkpoint_every=args.checkpoint_every,
+                                    checkpoint_dir=args.checkpoint_dir),
+                     start_step=start, ckpt_meta=ckpt_meta)
     out = loop.run()
     losses = [h["loss"] for h in out["history"]]
     if losses:

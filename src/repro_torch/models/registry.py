@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` → ArchConfig, plus param counting.
 
 Mirrors ``repro/models/registry.py``.  The port carries gemma2-2b (slices
-1 and 2) and deepseek-v3-671b (slice 3: MLA, MoE, MTP params); the other
-eight ids of the reference are known here and raise
-``NotImplementedError`` until the slice that ports their layers (SSM,
-frontends, the other configs) lands.
+1 and 2), deepseek-v3-671b (slice 3: MLA, MoE, MTP params) and the four
+attention configs of slice 9 (qwen2.5-3b, phi4-mini-3.8b, granite-34b,
+qwen3-moe-235b-a22b); the other four ids of the reference are known here
+and raise ``NotImplementedError`` until the slice that ports their layers
+(SSM, frontends) lands.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ ARCH_IDS: List[str] = [
 ]
 
 # ids whose config (and layers) the port carries today
-PORTED_IDS: List[str] = ["gemma2-2b", "deepseek-v3-671b"]
+PORTED_IDS: List[str] = ["gemma2-2b", "deepseek-v3-671b", "qwen2.5-3b",
+                         "phi4-mini-3.8b", "granite-34b",
+                         "qwen3-moe-235b-a22b"]
 
 
 def _module_name(arch_id: str) -> str:

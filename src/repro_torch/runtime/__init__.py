@@ -1,2 +1,3 @@
-"""Training runtime (port of ``repro/runtime``, slice 2: the BSP train
-step and loop)."""
+"""Training runtime (port of ``repro/runtime``): the BSP train step with
+uneven shares, the loop with checkpoints, stragglers and heartbeats, the
+fault plans, elastic recovery and the train soak."""

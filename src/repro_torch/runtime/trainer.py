@@ -27,9 +27,22 @@ One superstep, in the reference's order (trainer.py:355-417):
 
 To fit the card, the EF residual, the moments and the params are updated
 in place, and each bucket's gradient payload is dropped once it is
-reduced; the arithmetic is the reference's.  ``shares=`` (uneven per-rank
-micro-batches) comes with a later slice; ``make_gspmd_train_step`` has no
-counterpart on one device.
+reduced; the arithmetic is the reference's.  ``make_gspmd_train_step`` has
+no counterpart on one device.
+
+``shares=`` (uneven per-rank micro-batches, trainer.py:279-353 of the
+reference) replaces the compute phase: rank r runs its ``shares[r]``
+micro-batches and accumulates each one's f32 gradients (and loss and
+metrics) into a Neumaier compensated pair ``(s, e)``; the pairs are held
+packed in the bucket layout, ``[W, L]`` f32 each per bucket.  The
+combine then runs in the fixed canonical order (every rank's ``s`` row,
+then every ``e`` row, then ``(ts + te) / sum(shares)``), so any partition
+of the same micro-batches gives the same bits; the combined gradient is
+written into all W rows, and the reduce-scatter over those identical
+copies, divided by W, recovers it exactly.  Neumaier's step is written
+literally (no fused or reassociated form: a ``torch.sum`` over the rank
+axis would round in another order), elementwise in chunks so that its
+temporaries stay small.
 """
 
 from __future__ import annotations
@@ -58,6 +71,82 @@ class BSPTrainState:
     flat_nu: torch.Tensor
     ef_residual: Optional[torch.Tensor]   # [W, total_padded] EF state
     step: int
+    cfg: ArchConfig                  # the params' layers (leaf order)
+
+    # -- checkpoint leaves: the reference's state tuple ------------------
+    # (params, flat_mu [W·S], flat_nu [W·S], ef [W·total] or a zeros([W])
+    # placeholder without a codec, step int32), trainer.py:446-455 there;
+    # params as its layer-stacked leaves (``weights.reference_leaves``)
+
+    def checkpoint_leaves(self) -> List[torch.Tensor]:
+        """The state as the reference's checkpoint leaves, copied to host
+        memory now (the step updates the state in place afterwards)."""
+        out = []
+        for leaf in reference_leaves(self.params, self.cfg):
+            host = torch.empty(leaf.shape, dtype=leaf.dtype)
+            rows = host.view(len(leaf.parts), -1)
+            for row, part in zip(rows, leaf.parts):
+                row.copy_(part.detach().reshape(-1))
+            out.append(host)
+        world = self.flat_mu.shape[0]
+        for t in (self.flat_mu, self.flat_nu):
+            out.append(t.detach().reshape(-1).to("cpu", copy=True))
+        out.append(torch.zeros(world, dtype=torch.float32)
+                   if self.ef_residual is None else
+                   self.ef_residual.reshape(-1).to("cpu", copy=True))
+        out.append(torch.tensor(self.step, dtype=torch.int32))
+        return out
+
+    def checkpoint_leaf_count(self) -> int:
+        return len(reference_leaves(self.params, self.cfg)) + 4
+
+    def checkpoint_descriptor(self) -> str:
+        n = len(reference_leaves(self.params, self.cfg))
+        ef = "ef" if self.ef_residual is not None else "ef placeholder"
+        return (f"repro_torch BSPTrainState: ({n} params leaves, flat_mu, "
+                f"flat_nu, {ef}, step)")
+
+    def from_checkpoint_leaves(self, leaves) -> "BSPTrainState":
+        """A new state shaped, typed and placed like this one, holding the
+        checkpoint's ``leaves`` (host tensors in ``checkpoint_leaves``
+        order, as many as ``checkpoint_leaf_count``).  Raises
+        ``ValueError`` if a leaf's size does not fit."""
+        ref = reference_leaves(self.params, self.cfg)
+
+        def fit(src, like):
+            if src.numel() != like.numel():
+                raise ValueError(f"checkpoint leaf of {src.numel()} "
+                                 f"elements for a tensor of {like.numel()}")
+            return src.to(like.dtype).reshape(like.shape).to(like.device)
+
+        params = _map_tensors(self.params, lambda t: torch.empty_like(
+            t, requires_grad=False))
+        for leaf, new, src in zip(ref, reference_leaves(params, self.cfg),
+                                  leaves):
+            if tuple(src.shape) != leaf.shape:
+                raise ValueError(f"{leaf.path}: checkpoint shape "
+                                 f"{tuple(src.shape)} != {leaf.shape}")
+            rows = src.reshape(len(new.parts), -1)
+            for part, row in zip(new.parts, rows):
+                part.copy_(row.reshape(part.shape))
+            for part in new.parts:
+                part.requires_grad_(True)
+        mu, nu, ef, step = leaves[len(ref):]
+        ef_new = None if self.ef_residual is None \
+            else fit(ef, self.ef_residual)
+        return BSPTrainState(params, fit(mu, self.flat_mu),
+                             fit(nu, self.flat_nu), ef_new,
+                             int(step.reshape(())), self.cfg)
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tensors(v, fn) for v in tree]
+    return tree
 
 
 def _adamw_flat(p, g, mu, nu, step: int, acfg: adamw.AdamWConfig):
@@ -72,6 +161,43 @@ def _adamw_flat(p, g, mu, nu, step: int, acfg: adamw.AdamWConfig):
     nhat = nu / (1 - b2 ** stepf)
     upd = mhat / (torch.sqrt(nhat) + acfg.eps) + acfg.weight_decay * p
     return p - lr * upd, mu, nu, {"lr": lr}
+
+
+# elements per chunk of a pair step: elementwise, so chunking changes no
+# bit; it bounds the step's temporaries at a few times 64 MB
+PAIR_CHUNK = 1 << 24
+
+
+def _pair_add(s, e, t):
+    """One Neumaier step on the compensated pair (s, e): s' = fl(s+t)
+    with the rounding error folded into e — (s'+e') carries the exact sum
+    to O(eps²).  Written as the reference writes it."""
+    x = s + t
+    e = e + torch.where(torch.abs(s) >= torch.abs(t), (s - x) + t,
+                        (t - x) + s)
+    return x, e
+
+
+def _pair_add_(s, e, t) -> None:
+    """``_pair_add`` into the 1-D pair (s, e) in place, chunk by chunk."""
+    for a in range(0, s.numel(), PAIR_CHUNK):
+        sl = slice(a, a + PAIR_CHUNK)
+        x, e_new = _pair_add(s[sl], e[sl], t[sl])
+        s[sl].copy_(x)
+        e[sl].copy_(e_new)
+
+
+def _combine(s, e, m_total: int) -> torch.Tensor:
+    """Rank-stacked pairs ``[W, L]`` → ``(ts + te) / m_total`` ``[L]``, in
+    the fixed canonical order: every rank's s row, then every e row."""
+    ts, te = torch.zeros_like(s[0]), torch.zeros_like(s[0])
+    for row in s:
+        _pair_add_(ts, te, row)
+    for row in e:
+        _pair_add_(ts, te, row)
+    # a true division (a CUDA tensor divided by a host scalar is
+    # multiplied by its reciprocal instead)
+    return ts.add_(te).div_(torch.tensor(float(m_total), device=ts.device))
 
 
 def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
@@ -95,12 +221,19 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
     ``[r·B/W, (r+1)·B/W)``) and metrics the world-mean ``loss``, ``xent``,
     ``aux`` and the ``lr`` as f32 scalars.  ``init_state.superstep_layout``
     is the reference's moment-layout tag."""
-    if shares is not None:
-        raise NotImplementedError(
-            "shares= (uneven per-rank micro-batches) comes with a later "
-            "slice of the port")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if shares is not None:
+        if grad_accum != 1:
+            raise ValueError(
+                "shares= and grad_accum>1 are mutually exclusive: shares IS "
+                "the per-rank micro-batch count")
+        shares = tuple(int(s) for s in shares)
+        if len(shares) != world:
+            raise ValueError(
+                f"shares has {len(shares)} entries for world size {world}")
+        if any(s < 1 for s in shares):
+            raise ValueError(f"every rank needs >= 1 micro-batch: {shares}")
     dev = resolve_device(device)
     rev = C.bit_reversed_index(world, dev)   # raises unless a power of two
     shapes = reference_leaves(T.init_params(cfg, device="meta"), cfg)
@@ -143,30 +276,84 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
         return (acc[0] * inv, {k: v * inv for k, v in acc[1].items()},
                 [g * inv for g in acc[2]])
 
+    def grouped(grads, leaves):
+        it = iter(grads)
+        return [[next(it) for _ in leaf.parts] for leaf in leaves]
+
+    def even_grads(params, leaves, flat_params, batch):
+        """Each rank's gradients into its row of every bucket; the GLOBAL
+        mean loss and metrics (each rank saw its own rows)."""
+        g_parts = [torch.zeros(world, b.length, dtype=f32, device=dev)
+                   for b in engine.buckets]
+        losses, metric_rows = [], []
+        for r, batch_r in enumerate(_split(batch, world)):
+            loss, metrics, grads = rank_grads(params, flat_params, batch_r)
+            engine.pack(grouped(grads, leaves), out=[g[r] for g in g_parts])
+            del grads
+            losses.append(loss)
+            metric_rows.append(metrics)
+        loss = torch.stack(losses).sum() / world
+        metrics = {k: torch.stack([m[k] for m in metric_rows]).sum() / world
+                   for k in metric_rows[0]}
+        return loss, metrics, g_parts
+
+    def shares_grads(params, leaves, flat_params, batch):
+        """Uneven micro-batch accumulation, partition-independent in f32:
+        rank r's slice is ``max(shares)`` micro-batch rows, of which it
+        runs the first ``shares[r]``, each pair-added into its rows of the
+        packed pairs; then the canonical combine.  Returns the GLOBAL mean
+        loss and metrics and, in every rank's row of each bucket, the
+        combined gradient."""
+        n_max, m_total = max(shares), sum(shares)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % (world * n_max):
+            raise ValueError(
+                f"batch of {rows} rows does not give each of {world} "
+                f"ranks max(shares) = {n_max} micro-batches — re-shard "
+                "it with data.pipeline.reshard_for_shares")
+        mb = rows // (world * n_max)
+        s_parts = [torch.zeros(world, b.length, dtype=f32, device=dev)
+                   for b in engine.buckets]
+        e_parts = [torch.zeros_like(p) for p in s_parts]
+        t_parts = [torch.zeros(b.length, dtype=f32, device=dev)
+                   for b in engine.buckets]
+        keys = sc_s = sc_e = None
+        for r in range(world):
+            for i in range(shares[r]):
+                lo = (r * n_max + i) * mb
+                loss, metrics, grads = rank_grads(
+                    params, flat_params,
+                    {k: v[lo:lo + mb] for k, v in batch.items()})
+                engine.pack(grouped(grads, leaves), out=t_parts)
+                del grads
+                if keys is None:
+                    keys = sorted(metrics)
+                    sc_s = torch.zeros(world, 1 + len(keys), dtype=f32,
+                                       device=dev)
+                    sc_e = torch.zeros_like(sc_s)
+                t = torch.stack([loss] + [metrics[k] for k in keys]).to(f32)
+                _pair_add_(sc_s[r], sc_e[r], t)
+                for s_b, e_b, t_b in zip(s_parts, e_parts, t_parts):
+                    _pair_add_(s_b[r], e_b[r], t_b)
+        del t_parts
+        sc = _combine(sc_s, sc_e, m_total)
+        for b in engine.buckets:
+            g = _combine(s_parts[b.index], e_parts[b.index], m_total)
+            e_parts[b.index] = None
+            s_parts[b.index].copy_(g.expand(world, -1))
+            del g
+        return sc[0], {k: sc[1 + j] for j, k in enumerate(keys)}, s_parts
+
     def step_fn(state: BSPTrainState, batch):
         leaves = reference_leaves(state.params, cfg)
         flat_params = [t for leaf in leaves for t in leaf.parts]
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in ("tokens", "labels")}
 
-        # --- compute: each rank's gradients into its row of every bucket
-        g_parts: List[Optional[torch.Tensor]] = [
-            torch.zeros(world, b.length, dtype=f32, device=dev)
-            for b in engine.buckets]
-        losses, metric_rows = [], []
-        for r, batch_r in enumerate(_split(batch, world)):
-            loss, metrics, grads = rank_grads(state.params, flat_params,
-                                              batch_r)
-            it = iter(grads)
-            grouped = [[next(it) for _ in leaf.parts] for leaf in leaves]
-            engine.pack(grouped, out=[g[r] for g in g_parts])
-            del grads, grouped, it
-            losses.append(loss)
-            metric_rows.append(metrics)
-        # the GLOBAL mean loss and metrics (each rank saw its own rows)
-        loss = torch.stack(losses).sum() / world
-        metrics = {k: torch.stack([m[k] for m in metric_rows]).sum() / world
-                   for k in metric_rows[0]}
+        # --- compute: every rank's gradients in the bucket layout
+        loss, metrics, g_parts = (shares_grads if shares is not None
+                                  else even_grads)(
+            state.params, leaves, flat_params, batch)
 
         # --- per bucket: EF → reduce-scatter → ZeRO-1 AdamW → all-gather
         new_p_parts, om = [], {}
@@ -233,7 +420,7 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
         # EF residual: PER-RANK state of the full bucket-ordered length
         ef = torch.zeros(world, engine.total_padded, dtype=f32, device=dev) \
             if has_codec else None
-        return BSPTrainState(params, mu, nu, ef, 0)
+        return BSPTrainState(params, mu, nu, ef, 0, cfg)
 
     init_state.superstep_layout = layout_tag
     init_state.engine = engine

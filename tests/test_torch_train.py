@@ -34,7 +34,8 @@
       - losses of steps 1-2: atol 1e-4 (they follow the params; measured
         ~1e-6).
   * the CLI on ``--device cpu`` (a forced non-fractal schedule and each
-    auto value among its runs), and its refusals.
+    auto value among its runs), and its refusals (``--checkpoint-dir``
+    runs since slice 9: ``tests/test_torch_checkpoint.py``).
 
 The card's own test of the step is marked ``cuda`` and skips here.
 """
@@ -327,9 +328,9 @@ def test_bsp_steps_track_reference(ref_run, name, codec, accum):
 def test_step_refuses_unported_options():
     cfg = get_config(ARCH)
     acfg = AdamWConfig()
-    with pytest.raises(NotImplementedError, match="shares"):
+    with pytest.raises(ValueError, match="shares"):
         make_bsp_train_step(cfg, acfg, BSPConfig(), WORLD, device="cpu",
-                            shares=[1, 1, 1, 1])
+                            grad_accum=2, shares=[1, 1, 1, 1])
     with pytest.raises(ValueError, match="power-of-two"):
         make_bsp_train_step(cfg, acfg, BSPConfig(), 3, device="cpu")
     with pytest.raises(ValueError, match="grad_accum"):
@@ -356,7 +357,6 @@ def test_cli_trains_on_cpu(capsys):
 @pytest.mark.parametrize("extra,match", [
     (["--schedule", "xla"], "A12"),
     (["--calibrate"], "A13"),
-    (["--checkpoint-dir", "ckpt"], "A5"),
 ])
 def test_cli_refuses_unported_flags(extra, match):
     with pytest.raises(NotImplementedError, match=match):
