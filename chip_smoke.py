@@ -44,7 +44,8 @@ The quickest proof that the port starts on the card.  Phases, in order
                 gemma2-2b's shape
                 (Hkv 4, G 2, d 256, bs 16), three more shapes and the
                 decode shapes of qwen2.5-3b (G 8), phi4-mini-3.8b (G 3),
-                qwen3-moe (G 16) and granite-34b (G 48), all d 128, ragged
+                qwen3-moe (G 16), granite-34b (G 48) and
+                jamba-v0.1-52b (Hkv 8, G 4), all d 128, ragged
                 lengths up to 8192 over sentinel-padded tables, window
                 None / 4096 / small, softcap None / 50; then time kernel
                 (split kernel + merge), plain version and the gather +
@@ -143,7 +144,44 @@ The quickest proof that the port starts on the card.  Phases, in order
                 ``DS_LOGIT_ATOL``; one step with no synchronising call, as
                 in 4; then a profiled step (host ms, device ms, idle share,
                 B8's share, the expert GEMMs' share);
-  8. an earlier line lists the kernels (JSON), and the last line is
+  slice 10 (the contiguous KV cache, the wave oracle, recurrent and
+  hybrid serving, the serve soak):
+  3c. contig  — phase 3's traffic with ``--kv-mode contiguous`` (the
+                CLI's default): all requests complete, no paged-attention
+                launch, tok/s, TTFT, peak memory; phase 4 also runs the
+                decode step over a contiguous cache beside the paged one
+                (logits within ``LOGIT_ATOL``, no synchronising call, a
+                profiled step's idle share);
+  3w. wave    — ``--mode wave`` (``serve_waves``, the token-identity
+                oracle) on the same requests: first-token logits of every
+                request within ``WAVE_LOGIT_ATOL`` of the continuous
+                engine's, the fraction of token-identical outputs printed
+                (bf16 GEMMs may round differently at wave batch 8 than at
+                chunk batch 1; the CPU tests assert identity in f32);
+  3s. soak    — ``serve.soak.run_soak`` at the reference's smoke soak
+                (2000 virtual steps, bursty arrivals, one admission stall
+                and one window with half the block pool confiscated) on
+                gemma2-2b's widths cut to ``SERVE_SOAK_CUT``: no failure,
+                the baseline p99, the recovery step, B7 launched once per
+                layer per decode step;
+  3x. xlstm   — xlstm-1.3b at full published width, no cut (48 layers,
+                2.02 B params, 672 MiB of f32 state a request): phase 3's
+                traffic, continuous and wave, with 3c's and 3w's checks
+                (no paged-attention launch; the wave within
+                ``XLSTM_WAVE_LOGIT_ATOL``); the decode step's host and
+                device ms, idle share and the prefill's seconds (the eager
+                per-token scan);
+  6c.         — phase 7 also runs DeepSeek's decode step over the
+                contiguous latent cache beside the paged one (logits
+                within ``DS_LOGIT_ATOL``);
+  8. jamba    — jamba-v0.1-52b at published widths with ONE cut, 32 ->
+                16 layers (``JAMBA_CUT``): phase 3's traffic (a) paged
+                with 4 recurrent rows for 8 slots (B7 and its merge 2 x
+                decode steps; every row and block back in its pool), (b)
+                contiguous (no paged-attention launch), (c) one decode
+                step paged vs contiguous within ``JAMBA_LOGIT_ATOL``, and
+                the profiled step's idle share and expert share;
+  9. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the repo's ``src/`` beside it, it exits 1 and
@@ -221,7 +259,10 @@ KERNEL_SHAPES = [dict(Hkv=4, G=2, d=256, bs=16),
                  dict(Hkv=2, G=8, d=128, bs=16),
                  dict(Hkv=8, G=3, d=128, bs=16),
                  dict(Hkv=4, G=16, d=128, bs=16),
-                 dict(Hkv=1, G=48, d=128, bs=16)]
+                 dict(Hkv=1, G=48, d=128, bs=16),
+                 # slice 10: jamba-v0.1-52b's attention layers (Hkv 8,
+                 # G 4, no window, no softcap when served)
+                 dict(Hkv=8, G=4, d=128, bs=16)]
 # full-width logits, kernel vs gather-then-attend lowering: both bf16
 # models; their attention outputs differ by bf16 rounding (2^-8
 # relative) and 26 residual layers compound it, on logits of magnitude
@@ -364,6 +405,65 @@ QWEN_TRAIN_ARGS = ["--arch", "qwen2.5-3b", "--device", "cuda", "--devices",
 SOAK_CUT = dict(num_layers=2, layer_pattern=("attn",) * 2)
 SOAK_SEQ = 1024
 SOAK_SHARES = ((2,) * 8, (3, 1, 2, 2, 2, 2, 2, 2))
+
+# Slice 10.  [3c] phase 3's traffic over the contiguous cache (the CLI's
+# default kv mode); [3w] the same requests through the wave oracle.
+CONTIG_SERVE_ARGS = [a if a != "paged" else "contiguous" for a in SERVE_ARGS]
+# first-token logits, wave (one prefill of the 8 prompts, T 256) vs the
+# continuous engine (four chunks of 64 at batch 1), both bf16: the same
+# values through GEMMs of other shapes (cuBLAS may split or tile them
+# differently, one bf16 rounding of 2^-8 relative on each output) and
+# attention over 64 queries against 256: the LOGIT_ATOL argument with
+# every layer's rounding free to differ, so twice it
+WAVE_LOGIT_ATOL = 0.5
+# The same for xlstm-1.3b, whose 48 recurrent layers amplify the GEMMs'
+# rounding through 256 steps of exponential gating: the batch floor (one
+# prompt prefilled by the same whole-prompt call alone and in the wave of
+# 8, nothing but GEMM shapes differing) read 0.55 on logits of magnitude
+# <= 4.97 on an H100 80GB HBM3 at 700 W, and the wave and the engine
+# differ in batch and in chunking, two draws of that noise (an f32 run on
+# the CPU is token-identical, tests/test_torch_serve_recurrent.py): four
+# times the floor
+XLSTM_WAVE_LOGIT_ATOL = 2.0
+# [3s] the reference's smoke serve soak (benchmarks/soak.py --smoke): 2000
+# virtual-clock steps, bursty arrivals (40/s, on half of each second), an
+# admission stall at steps 700-760 and half the block pool confiscated at
+# 1000-1200; 8 slots, 8-token prompts, 4-12 new tokens, paged KV of
+# 33 blocks of 8; recovery within 1.5 x the pre-fault p99 (+ 10 ms) in
+# 500 steps.  On gemma2-2b's widths with ONE cut, 26 -> 4 layers, to keep
+# the 2000 eager steps in time (the virtual clock makes TTFT a count of
+# steps, so depth does not move the verdict).
+SERVE_SOAK_CUT = dict(num_layers=4, layer_pattern=("local", "global") * 2)
+SERVE_SOAK_STEPS = 2000
+SERVE_SOAK_ARRIVAL = "burst:40,0.5"
+SERVE_SOAK_PLAN = "stall:steps=700..760;blocks:frac=0.5,steps=1000..1200"
+SERVE_SOAK_ENGINE = dict(max_slots=8, max_len=32, prefill_chunk=8,
+                         chunks_per_step=2, kv_mode="paged", block_size=8,
+                         kv_blocks=33, clock="step")
+# [3x] xlstm-1.3b at full published width, no cut: 48 layers (42 mLSTM, 6
+# sLSTM), 2,020,763,984 params, 4.04 GB in bf16; 42 x 4 heads x 1024 x
+# 1024 x 4 B = 672 MiB of f32 mLSTM state a request (plus the small sLSTM
+# and conv state), so 8 rows + the sentinel hold 5.9 GiB.  Phase 3's
+# traffic; no KV cache, so no paged-attention launch.
+XLSTM_SERVE_ARGS = ["--arch", "xlstm-1.3b"] + CONTIG_SERVE_ARGS[2:]
+# [8] jamba-v0.1-52b at published widths with ONE cut, 32 -> 16 layers
+# (two of its 8-layer units, each 3 mamba, 4 mamba+MoE and 1 attention
+# layer): 26,053,595,136 params, 52.1 GB in bf16; 24
+# layers would be about 77.6 GB before caches.  (a) paged with 4
+# recurrent rows for 8 slots, so rows are the scarce resource; (b)
+# contiguous.
+JAMBA_CUT_LAYERS = 16
+JAMBA_PAGED_ARGS = ["--arch", "jamba-v0.1-52b"] + SERVE_ARGS[2:] + [
+    "--rec-slots", "4"]
+JAMBA_CONTIG_ARGS = ["--arch", "jamba-v0.1-52b"] + CONTIG_SERVE_ARGS[2:]
+# Jamba's logits, B7 vs the gather lowering and paged vs contiguous: the
+# two attention layers' outputs differ by bf16 rounding (phase 2 at G 4:
+# within 5e-2 of the row RMS) and the 14 mamba layers carry it on; the
+# MoE combine's bf16 index_add_ is atomic and a perturbed state can flip
+# a top-2 pick near a tie, as for DeepSeek (DS_LOGIT_ATOL); logits of
+# magnitude ~4 (an untied head of scale 1/sqrt(4096) against an RMS-normed
+# state)
+JAMBA_LOGIT_ATOL = 0.75
 
 
 def _smi() -> str:
@@ -2037,24 +2137,105 @@ def ds_config():
     return dataclasses.replace(get_config("deepseek-v3-671b"), **DS_CUT)
 
 
-def phase_serve(torch, ops, cfg, argv):
+def jamba_config():
+    """jamba-v0.1-52b at its published widths, cut to its first
+    ``JAMBA_CUT_LAYERS`` layers (whole 8-layer units)."""
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    cfg = get_config("jamba-v0.1-52b")
+    return dataclasses.replace(
+        cfg, num_layers=JAMBA_CUT_LAYERS,
+        layer_pattern=cfg.layer_pattern[:JAMBA_CUT_LAYERS])
+
+
+def _kernel_layers(cfg):
+    """Layers whose paged decode runs a kernel: (B7 layers, B8 layers)."""
+    from repro_torch.models import transformer as T
+    return (sum(k in T.ATTN_KINDS for k in cfg.layer_pattern),
+            sum(k in T.MLA_KINDS for k in cfg.layer_pattern))
+
+
+class _Recorder:
+    """Wraps ``transformer.prefill_chunk`` and ``transformer.prefill`` while
+    a serve run calls them, keeping each request's first-token logits (the
+    last real prompt position of its final chunk, or of the wave's batch
+    prefill) on the card, keyed after the run by the prompt's last
+    ``tail`` tokens."""
+
+    def __init__(self, T, tail):
+        self.T, self.tail, self.kept = T, tail, []
+
+    def __enter__(self):
+        T, kept = self.T, self.kept
+        self.chunk, self.whole = T.prefill_chunk, T.prefill
+
+        def chunk(params, cfg, tokens, cache, offset, with_logits=True,
+                  **kw):
+            lg, cache = self.chunk(params, cfg, tokens, cache, offset,
+                                   with_logits=with_logits, **kw)
+            if with_logits:
+                last = (kw.get("valid") or tokens.shape[1]) - 1
+                kept.append((tokens[:, :last + 1].clone(),
+                             lg[:, last].clone()))
+            return lg, cache
+
+        def whole(params, cfg, tokens, cache):
+            lg, cache, n = self.whole(params, cfg, tokens, cache)
+            kept.append((tokens.clone(), lg[:, -1].clone()))
+            return lg, cache, n
+
+        T.prefill_chunk, T.prefill = chunk, whole
+        return self
+
+    def __exit__(self, *exc):
+        self.T.prefill_chunk, self.T.prefill = self.chunk, self.whole
+
+    def logits(self):
+        """{prompt tail: f32 logits [V]}."""
+        out = {}
+        for toks, lg in self.kept:
+            for t, row in zip(toks.tolist(), lg.float()):
+                out[tuple(t[-self.tail:])] = row
+        return out
+
+
+def phase_serve(torch, ops, cfg, argv, out=None):
     """The main serve path, ``launch.serve.run(cfg, args)``; the kernels'
     counts are set to 0 just before and read just after.  Returns the
-    launches of the decode kernel of ``cfg``'s attention (B8 for MLA, B7
-    otherwise) and of its merge, each of which must be one per layer per
-    decode step."""
+    launches of the paged decode kernel of ``cfg``'s attention (B8 for
+    MLA, B7 otherwise) and of its merge: one per attention layer per
+    decode step over the paged cache, none over the contiguous one or in
+    a wave.  With ``out`` (a dict) the run also keeps its outputs
+    (``results``), its first-token logits (``first``) and its engine's
+    resources at the end (``pools``: rows and blocks in use)."""
+    import repro_torch.serve as serve_pkg
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer as T
     dev = torch.device("cuda", 0)
     args = serve_cli.parse_args(argv)
+    engines = []
+
+    class Kept(serve_pkg.ServeEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
     torch.cuda.reset_peak_memory_stats(dev)
-    ops.LAUNCHES = ops.MLA_LAUNCHES = 0
-    ops.MERGE_LAUNCHES = ops.MLA_MERGE_LAUNCHES = 0
-    t0 = time.perf_counter()
-    results, metrics = serve_cli.run(cfg, args)
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    gqa = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
-    mla = (ops.MLA_LAUNCHES, ops.MLA_MERGE_LAUNCHES)
+    plain = serve_pkg.ServeEngine
+    serve_pkg.ServeEngine = Kept
+    rec = _Recorder(T, args.prefill_chunk)
+    try:
+        with rec:
+            ops.LAUNCHES = ops.MLA_LAUNCHES = 0
+            ops.MERGE_LAUNCHES = ops.MLA_MERGE_LAUNCHES = 0
+            t0 = time.perf_counter()
+            results, metrics = serve_cli.run(cfg, args)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            gqa = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+            mla = (ops.MLA_LAUNCHES, ops.MLA_MERGE_LAUNCHES)
+    finally:
+        serve_pkg.ServeEngine = plain
     name, (launches, merges), other = (
         ("paged_mla_attention", mla, gqa) if cfg.mla
         else ("paged_attention", gqa, mla))
@@ -2062,64 +2243,210 @@ def phase_serve(torch, ops, cfg, argv):
     if s["completed"] != args.requests or len(results) != args.requests:
         raise AssertionError(f"{s['completed']}/{args.requests} requests "
                              "completed")
-    for rid, out in results.items():
-        if not 1 <= len(out) <= args.gen or \
-                not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request {rid}: bad output {out[:8]}... "
+    for rid, toks in results.items():
+        if not 1 <= len(toks) <= args.gen or \
+                not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {rid}: bad output {toks[:8]}... "
                                  f"(vocab {cfg.vocab_size})")
-    want = cfg.num_layers * metrics.decode_steps
+    paged = args.kv_mode == "paged" and args.mode == "continuous"
+    layers = sum(_kernel_layers(cfg)) if paged else 0
+    want = layers * metrics.decode_steps
     if launches != want or merges != want or any(other):
         raise AssertionError(
             f"{name} launches {launches}, merges {merges}, want "
-            f"{cfg.num_layers} layers x {metrics.decode_steps} decode steps "
-            f"of each (other kernel and merge: {other})")
+            f"{layers} paged attention layers x {metrics.decode_steps} "
+            f"decode steps of each (other kernel and merge: {other})")
+    pools = [(e.rec.num_used if e.rec is not None else 0,
+              e.allocator.num_used if e.allocator is not None else 0)
+             for e in engines if e.rec is not None or e.allocator is not None]
+    engines.clear()
+    if any(r or b for r, b in pools):
+        raise AssertionError(f"rows and blocks still in use after the run: "
+                             f"{pools}")
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"  serve {cfg.name}: {s['completed']}/{args.requests} completed, "
-          f"{s['tokens_out']} tokens (all < vocab {cfg.vocab_size}), "
-          f"{metrics.decode_steps} decode steps, {launches} {name} "
-          f"launches and {merges} merges (each = {cfg.num_layers} x decode "
-          f"steps), engine "
+    where = (f"{args.mode}, {args.kv_mode} cache"
+             + (f", {args.rec_slots} recurrent rows" if args.rec_slots
+                else ""))
+    print(f"  serve {cfg.name} ({where}): {s['completed']}/{args.requests} "
+          f"completed, {s['tokens_out']} tokens (all < vocab "
+          f"{cfg.vocab_size}), {metrics.decode_steps} decode steps, "
+          f"{launches} {name} launches and {merges} merges (each = "
+          f"{layers} x decode steps), engine "
           f"{s['tokens_per_s']:.1f} tok/s over {s['wall_s']:.2f} s (run() "
           f"incl. init {wall:.2f} s), TTFT p50 {s['ttft_p50_s']:.3f} s / "
           f"p95 {s['ttft_p95_s']:.3f} s, peak memory {peak / 2**30:.2f} GiB "
-          f"({peak / 1e9:.1f} GB)")
+          f"({peak / 1e9:.1f} GB)" + ("; every recurrent row and block "
+                                      "back in its pool" if pools else ""))
+    if out is not None:
+        out.update(results=results, first=rec.logits(), summary=s,
+                   kept=rec.kept, args=args)
     return launches, merges
 
 
-def phase_decode_step(torch, cfg, dev, atol):
-    """One decode step on one cache: kernel vs gather lowering (both twice
-    for MoE models, whose bf16 combine is atomic: the ref-vs-ref spread is
-    the run-to-run floor)."""
-    import numpy as np
+def phase_wave(torch, ops, cfg, argv, cont, atol):
+    """``--mode wave`` (``serve_waves``, the oracle) on the requests of the
+    continuous run ``cont`` (``phase_serve``'s ``out``): every request's
+    first-token logits within ``atol`` of the continuous engine's, and the
+    fraction of token-identical outputs, printed, not asserted.  Beside
+    them the batch floor: the wave's first prompt prefilled again alone
+    (batch 1, the same whole-prompt call), whose logits differ from the
+    wave's row only by the GEMM shapes."""
     from repro_torch.models import transformer as T
-    params = T.init_params(cfg, 1, device=dev)
+    wave = {}
+    t0 = time.perf_counter()
+    phase_serve(torch, ops, cfg, argv + ["--mode", "wave"], out=wave)
+    if sorted(wave["first"]) != sorted(cont["first"]):
+        raise AssertionError("the wave and the continuous run prefilled "
+                             "different prompts")
+    keys = sorted(cont["first"])
+    errs = [(wave["first"][k] - cont["first"][k]).abs().max().item()
+            for k in keys]
+    same = sum(wave["results"][r] == cont["results"][r]
+               for r in cont["results"])
+    agree = sum(wave["first"][k].argmax().item()
+                == cont["first"][k].argmax().item() for k in keys)
+    big = max(cont["first"][k].abs().max().item() for k in keys)
+    args = wave["args"]
+    dev = cont["first"][keys[0]].device
+    toks, wave_lg = wave["kept"][0]
+    params = T.init_params(cfg, args.seed, device=dev)
+    max_len = args.prompt_len + args.gen + 1
+    with torch.inference_mode():
+        alone = T.prefill(params, cfg, toks[:1],
+                          T.init_cache(cfg, 1, max_len, device=dev))[0]
+    del params
+    key = tuple(toks[0, -args.prefill_chunk:].tolist())
+    floor = (alone[0, -1].float() - wave_lg[0].float()).abs().max().item()
+    chunked = (alone[0, -1].float() - cont["first"][key]).abs().max().item()
+    print(f"  wave vs continuous ({cfg.name}): first-token logits max|diff| "
+          f"{max(errs):.4e} (atol {atol}; median "
+          f"{sorted(errs)[len(errs) // 2]:.4e}; |logits| <= {big:.3f}), "
+          f"first tokens equal for {agree}/{len(errs)}, outputs "
+          f"token-identical for {same}/{len(cont['results'])} requests "
+          f"({same / len(cont['results']) * 100:.0f}%); batch floor "
+          f"(prompt 0 prefilled alone vs in the wave of "
+          f"{toks.shape[0]}) {floor:.4e}, alone vs the engine's chunks at "
+          f"batch 1 {chunked:.4e}; wave phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not max(errs) <= atol:
+        raise AssertionError(f"wave first-token logits differ by "
+                             f"{max(errs)}")
+    return same / len(cont["results"])
+
+
+def _decode_setup(torch, T, params, cfg, dev, contiguous):
+    """B rows, the last one masked (the sentinel offset; the sentinel
+    recurrent row), the others prefilled with the same 256-token prompts in
+    64-token chunks, over a paged cache (block 16) or a contiguous one;
+    recurrent layers on pooled rows 1..B-1 either way (a model without KV
+    prefills every row in one call a chunk).  Returns
+    (cache, args, kwargs) of a decode step, a prefill-chunk call for the
+    profile and the prefill's seconds (host clock, synchronised)."""
+    import numpy as np
     B, bs, C, plen = 8, 16, 64, 256
     n = -(-(plen + 65) // bs)
-    cache = T.init_paged_cache(cfg, 1 + B * n, bs, device=dev)
+    S = n * bs
+    rec = T.has_recurrent(cfg)
+    if contiguous:
+        cache = (T.init_hybrid_cache(cfg, kv_batch=B, kv_len=S,
+                                     rec_batch=B + 1, device=dev) if rec
+                 else T.init_cache(cfg, B, S, device=dev))
+    else:
+        cache = (T.init_hybrid_cache(cfg, kv_batch=1 + B * n, kv_len=bs,
+                                     rec_batch=B + 1, device=dev) if rec
+                 else T.init_paged_cache(cfg, 1 + B * n, bs, device=dev))
     tables = np.zeros((B, n), np.int32)
     rng = np.random.default_rng(2)
+
+    def prefill_into(b, toks, s, cache):
+        kw = dict(with_logits=False)
+        if rec:
+            kw.update(rec_rows=torch.tensor([b + 1], device=dev), valid=C)
+        if contiguous:
+            sub = T.take_state(cfg, cache, b)
+            _, sub = T.prefill_chunk(params, cfg, toks, sub, s, **kw)
+            return T.write_state(cfg, cache, sub, b)
+        row = torch.from_numpy(tables[b:b + 1]).to(dev)
+        return T.prefill_chunk(params, cfg, toks, cache, s,
+                               block_tables=row, **kw)[1]
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        for b in range(B - 1):              # row B-1 stays masked
-            tables[b] = 1 + b * n + np.arange(n)
-            prompt = torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, size=(1, plen))).to(dev)
-            row = torch.from_numpy(tables[b:b + 1]).to(dev)
+        prompts = [torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(1, plen))).to(dev) for _ in range(B - 1)]
+        prompt = prompts[-1]
+        if not T.has_attention(cfg):
+            # no KV to place per slot: every row's chunk in one call
+            rows = torch.arange(1, B, device=dev)
             for s in range(0, plen, C):
-                _, cache = T.prefill_chunk(params, cfg, prompt[:, s:s + C],
-                                           cache, s, with_logits=False,
-                                           block_tables=row)
-        offs = np.full(B, plen, np.int32)
-        offs[-1] = n * bs - 1
-        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                            size=(B, 1))).to(dev)
-        args = (tok, cache, torch.from_numpy(offs).to(dev))
-        bt = torch.from_numpy(tables).to(dev)
-        lk, _ = T.decode_step(params, cfg, *args, block_tables=bt,
-                              paged_kernel="auto")
-        lr, _ = T.decode_step(params, cfg, *args, block_tables=bt,
-                              paged_kernel="ref")
-        lr2 = T.decode_step(params, cfg, *args, block_tables=bt,
-                            paged_kernel="ref")[0] if cfg.moe else lr
+                cache = T.prefill_chunk(
+                    params, cfg, torch.cat(prompts)[:, s:s + C], cache, s,
+                    with_logits=False, rec_rows=rows, valid=C)[1]
+        else:
+            for b in range(B - 1):
+                tables[b] = 1 + b * n + np.arange(n)
+                for s in range(0, plen, C):
+                    cache = prefill_into(b, prompts[b][:, s:s + C], s,
+                                         cache)
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    offs = np.full(B, plen, np.int32)
+    offs[-1] = S - 1
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(B, 1))).to(dev)
+    args = (tok, cache, torch.from_numpy(offs).to(dev))
+    kw = {}
+    if not contiguous:
+        kw["block_tables"] = torch.from_numpy(tables).to(dev)
+    if rec:
+        kw["rec_rows"] = torch.tensor(list(range(1, B)) + [0], device=dev)
+        kw["active"] = torch.tensor([True] * (B - 1) + [False], device=dev)
+    chunk = lambda: prefill_into(B - 2, prompt[:, :C], 0, cache)
+    return cache, args, kw, chunk, prefill_s
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rec_snapshot(T, cfg, cache):
+    """Copies of the recurrent leaves, which a decode step advances (KV
+    writes repeat the same values, so the KV leaves need none)."""
+    return {i: {k: x.clone() for k, x in cache[i].items()}
+            for i, kind in enumerate(cfg.layer_pattern)
+            if kind in T.REC_KINDS}
+
+
+def _rec_restore(cache, snap):
+    for i, leaves in snap.items():
+        for k, x in leaves.items():
+            cache[i][k].copy_(x)
+
+
+def phase_decode_step(torch, cfg, dev, atol, contiguous=None):
+    """One decode step on one cache: kernel vs gather lowering (both twice
+    for MoE models, whose bf16 combine is atomic: the ref-vs-ref spread is
+    the run-to-run floor).  With ``contiguous`` (a tolerance), the same
+    step over a contiguous cache holding the same prompts too: its logits
+    within that of the kernel's, no synchronising call, and its profile.
+    Every call starts from the same recurrent state."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, 1, device=dev)
+    cache, args, kw, chunk, prefill_s = _decode_setup(
+        torch, T, params, cfg, dev, contiguous=False)
+    snap = _rec_snapshot(T, cfg, cache)
+
+    def step(kernel, args=args, kw=kw, snap=snap):
+        _rec_restore(args[1], snap)
+        return T.decode_step(params, cfg, *args, paged_kernel=kernel,
+                             **kw)[0]
+
+    B = args[0].shape[0]
+    with torch.inference_mode():
+        lk, lr = step("auto"), step("ref")
+        lr2 = step("ref") if cfg.moe else lr
     if tuple(lk.shape) != (B, 1, cfg.vocab_size) or \
             not torch.isfinite(lk).all():
         raise AssertionError("decode logits not finite / wrong shape")
@@ -2133,10 +2460,54 @@ def phase_decode_step(torch, cfg, dev, atol):
           f"{agree.item() * 100:.0f}%")
     if not err <= atol:
         raise AssertionError(f"decode logits differ by {err}")
+    if contiguous is not None:
+        ccache, cargs, ckw, cchunk, cpre = _decode_setup(
+            torch, T, params, cfg, dev, contiguous=True)
+        csnap = _rec_snapshot(T, cfg, ccache)
+        cstep = lambda: (_rec_restore(ccache, csnap), T.decode_step(
+            params, cfg, *cargs, **ckw))[1]
+        with torch.inference_mode():
+            lc = cstep()[0]
+        cerr = (lc[live] - lk[live]).abs().max().item()
+        rerr = (lc[live] - lr[live]).abs().max().item()
+        print(f"  decode step {cfg.name} over the contiguous cache: "
+              f"max|logits(contiguous) - logits(paged kernel)| = "
+              f"{cerr:.4e} (atol {contiguous}), vs the paged gather "
+              f"lowering {rerr:.4e}; prefill of 7 x 256 tokens "
+              f"{cpre:.2f} s contiguous, {prefill_s:.2f} s paged")
+        if not (torch.isfinite(lc).all() and cerr <= contiguous):
+            raise AssertionError(f"contiguous decode logits differ by "
+                                 f"{cerr}")
+        with torch.inference_mode():
+            _sync_free(torch, cstep, call="one decode_step over the "
+                       "contiguous cache")
+        _profile_steps(torch, cfg, dev, cstep, cchunk, kernel=False)
+        del ccache, cargs, csnap
     with torch.inference_mode():
-        _sync_free(torch, lambda: T.decode_step(
-            params, cfg, *args, block_tables=bt, paged_kernel="auto"))
-    _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt)
+        _sync_free(torch, lambda: step("auto"))
+    _profile_steps(torch, cfg, dev, lambda: step("auto"), chunk)
+
+
+def phase_recurrent_step(torch, cfg, dev):
+    """A pure-recurrent model's decode step (no KV cache: nothing to page,
+    no paged-attention kernel): 7 rows prefilled through pooled state rows,
+    the prefill's seconds (the eager per-token scan), then a profiled
+    decode step (host ms, device ms, idle share)."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, 1, device=dev)
+    cache, args, kw, chunk, prefill_s = _decode_setup(
+        torch, T, params, cfg, dev, contiguous=True)
+    snap = _rec_snapshot(T, cfg, cache)
+    step = lambda: (_rec_restore(cache, snap),
+                    T.decode_step(params, cfg, *args, **kw))[1]
+    with torch.inference_mode():
+        lg = step()[0]
+    if not torch.isfinite(lg[:-1]).all():
+        raise AssertionError("recurrent decode logits not finite")
+    print(f"  {cfg.name}: prefill of 7 x 256 tokens, 4 chunks of 7 x 64, "
+          f"through pooled rows {prefill_s:.2f} s ({prefill_s / 4 * 1e3:.1f} "
+          f"ms a chunk, {prefill_s / 256 * 1e3:.2f} ms a step of the scan)")
+    _profile_steps(torch, cfg, dev, step, chunk, kernel=False)
 
 
 def _sync_free(torch, step, what="the decode forward",
@@ -2194,37 +2565,33 @@ def _span_us(events):
     return total
 
 
-def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
+def _profile_steps(torch, cfg, dev, step, chunk, kernel=True):
     """Where a full-width step's time goes: host-clock time of one prefill
-    chunk and one decode step (synchronised), and the profiler's device
-    time per op for the decode step: the paged decode kernels' share (B8
-    for MLA models, B7 otherwise; split kernel and merge, whose names both
-    carry the op's) and the expert GEMMs' share (``aten::bmm`` over the
-    [E, ...] expert stacks) for MoE models."""
+    chunk and one decode step (``chunk()``, ``step()``; synchronised), and
+    the profiler's device time per op for the decode step: with
+    ``kernel``, the paged decode kernels' share (B8 for MLA models, B7
+    otherwise; split kernel and merge, whose names both carry the op's);
+    for MoE models the expert GEMMs' share (``aten::bmm`` over the
+    [E, ...] expert stacks)."""
     from torch.profiler import ProfilerActivity, profile
 
     def timed(fn, reps=5):
         fn()
-        torch.cuda.synchronize(dev)
+        _sync(torch, dev)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize(dev)
+        _sync(torch, dev)
         return (time.perf_counter() - t0) / reps * 1e3
 
     with torch.inference_mode():
-        step = lambda: T.decode_step(params, cfg, *args, block_tables=bt,
-                                     paged_kernel="auto")
-        chunk = lambda: T.prefill_chunk(params, cfg, prompt[:, :64],
-                                        args[1], 0, with_logits=False,
-                                        block_tables=row)
         step_ms, chunk_ms = timed(step), timed(chunk)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      record_shapes=cfg.moe is not None) as prof:
             for _ in range(3):
                 step()
-            torch.cuda.synchronize(dev)
+            _sync(torch, dev)
     from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = _span_us(kernels) / 3e3
@@ -2238,20 +2605,24 @@ def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
     op, label = ("paged_mla", "B8") if cfg.mla is not None \
         else ("paged_attention", "B7")
     mine = [e for e in kernels if op in e.name]
-    split = sum(e.time_range.elapsed_us() for e in mine
-                if "merge" not in e.name) / 3e3
-    merge = sum(e.time_range.elapsed_us() for e in mine
-                if "merge" in e.name) / 3e3
-    if dev.type == "cuda" and not (split and merge):
-        raise AssertionError(f"the profiled decode step shows no {op} "
-                             f"split kernel ({split} ms) or merge ({merge} "
-                             "ms)")
-    span = _span_us(mine) / 3e3
-    print(f"  {label}: {span:.4f} ms per decode step on the card (split "
-          f"kernel and merge, {cfg.num_layers} launches of each; their "
-          f"intervals {split:.4f} + {merge:.4f} ms, the merge's from its "
-          f"early launch), {span / max(busy, 1e-9) * 100:.2f}% of its device "
-          "time")
+    if kernel:
+        split = sum(e.time_range.elapsed_us() for e in mine
+                    if "merge" not in e.name) / 3e3
+        merge = sum(e.time_range.elapsed_us() for e in mine
+                    if "merge" in e.name) / 3e3
+        if dev.type == "cuda" and not (split and merge):
+            raise AssertionError(f"the profiled decode step shows no {op} "
+                                 f"split kernel ({split} ms) or merge "
+                                 f"({merge} ms)")
+        span = _span_us(mine) / 3e3
+        print(f"  {label}: {span:.4f} ms per decode step on the card (split "
+              f"kernel and merge, {sum(_kernel_layers(cfg))} launches of "
+              f"each; their intervals {split:.4f} + {merge:.4f} ms, the "
+              f"merge's from its early launch), "
+              f"{span / max(busy, 1e-9) * 100:.2f}% of its device time")
+    elif mine:
+        raise AssertionError(f"{len(mine)} {op} kernels in a step that "
+                             "should run none")
     if cfg.moe is not None:
         E = cfg.moe.num_experts
         experts = sum(
@@ -2264,6 +2635,63 @@ def _profile_steps(torch, T, params, cfg, dev, prompt, row, args, bt):
               f"{experts / max(busy, 1e-9) * 100:.1f}% of its device time")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12, max_name_column_width=40))
+
+
+def phase_serve_soak(torch, ops, cfg, dev):
+    """The reference's smoke serve soak (``SERVE_SOAK_*``) through
+    ``serve.soak.run_soak`` on ``cfg``: no failure (p99 TTFT back within
+    1.5 x the pre-fault baseline + 10 ms within 500 steps of the last
+    fault), B7 and its merge once per attention layer per decode step.
+    Returns B7's launches."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.serve import (EngineConfig, Request, ServeEngine,
+                                   SoakConfig, parse_arrival_spec, run_soak)
+    params = T.init_params(cfg, 0, device=dev)
+    ecfg = EngineConfig(**SERVE_SOAK_ENGINE)
+    engine = ServeEngine(cfg, params, ecfg)
+    steps = SERVE_SOAK_STEPS
+    rate = float(SERVE_SOAK_ARRIVAL.split(":", 1)[1].split(",")[0])
+    n = int(rate * steps * ecfg.step_s)
+    arrivals = parse_arrival_spec(SERVE_SOAK_ARRIVAL, n, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = [Request(req_id=i,
+                    prompt=rng.integers(0, cfg.vocab_size, size=(8,)).tolist(),
+                    max_new_tokens=int(rng.integers(4, 13)),
+                    arrival_s=arrivals[i]) for i in range(n)]
+    plan = FaultPlan.parse(SERVE_SOAK_PLAN)
+    scfg = SoakConfig(steps=steps, window=max(10, steps // 40),
+                      warmup_steps=max(50, steps // 10), recovery_band=1.5,
+                      recovery_slack_s=0.01,
+                      recovery_steps=max(200, steps // 4))
+    ops.LAUNCHES = ops.MERGE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_soak(engine, reqs, plan, scfg)
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches, merges = ops.LAUNCHES, ops.MERGE_LAUNCHES
+    s = res.summary
+    layers = _kernel_layers(cfg)[0]
+    worst = max((r["ttft_p99_s"] for r in res.trend
+                 if r["first_tokens"] and r["step"] > plan.first_fault_start()),
+                default=float("nan"))
+    print(f"  serve soak {cfg.name}: {steps} steps in {secs:.1f} s "
+          f"({secs / steps * 1e3:.2f} ms a step), {n} requests "
+          f"({SERVE_SOAK_ARRIVAL}), faults {plan.spec()!r}: failures "
+          f"{res.failures}, baseline p99 TTFT "
+          f"{res.baseline_p99_s * 1e3:.1f} ms, worst window p99 "
+          f"{worst * 1e3:.1f} ms, fault end step {res.fault_end_step}, "
+          f"recovered at step {res.recovered_step} "
+          f"({res.recovery_steps_taken} steps), {s['completed']:.0f} "
+          f"completed, queue peak {s['queue_peak']:.0f}, preemptions "
+          f"{s['preemptions']:.0f}, {s['decode_steps']:.0f} decode steps, "
+          f"{launches} paged_attention launches and {merges} merges")
+    want = layers * int(s["decode_steps"])
+    if res.failures or launches != want or merges != want:
+        raise AssertionError(f"serve soak: failures {res.failures}, "
+                             f"launches {launches}/{merges}, want {want}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3135,9 +3563,36 @@ def main(argv=None) -> int:
 
     print("[3] serve gemma2-2b at full width", flush=True)
     launches, merges = phase_serve(torch, ops, gemma, SERVE_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[3c] serve gemma2-2b at full width over the contiguous cache",
+          flush=True)
+    t0 = time.perf_counter()
+    cont = {}
+    contig_launches, _ = phase_serve(torch, ops, gemma, CONTIG_SERVE_ARGS,
+                                     out=cont)
+    print(f"  phase 3c: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[3w] the wave oracle (--mode wave) on the same requests",
+          flush=True)
+    wave_same = phase_wave(torch, ops, gemma, CONTIG_SERVE_ARGS, cont,
+                           WAVE_LOGIT_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    print("[4] one decode step: kernel vs gather lowering", flush=True)
-    phase_decode_step(torch, gemma, dev, LOGIT_ATOL)
+    print("[4] one decode step: kernel vs gather lowering, and over the "
+          "contiguous cache", flush=True)
+    t0 = time.perf_counter()
+    phase_decode_step(torch, gemma, dev, LOGIT_ATOL, contiguous=LOGIT_ATOL)
+    print(f"  phase 4: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    soak_cfg = train_config(SERVE_SOAK_CUT)
+    print(f"[3s] the serve soak on gemma2-2b ({soak_cfg.num_layers} of 26 "
+          "layers)", flush=True)
+    soak_launches = phase_serve_soak(torch, ops, soak_cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3148,6 +3603,24 @@ def main(argv=None) -> int:
     phase_decode_step(torch, qwen, dev, QWEN_LOGIT_ATOL)
     gc.collect()
     torch.cuda.empty_cache()
+
+    xl = get_config("xlstm-1.3b")
+    print(f"[3x] serve xlstm-1.3b at full published width ({xl.num_layers} "
+          "layers, recurrent rows): continuous, wave, one decode step",
+          flush=True)
+    t0 = time.perf_counter()
+    xcont = {}
+    phase_serve(torch, ops, xl, XLSTM_SERVE_ARGS, out=xcont)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl_same = phase_wave(torch, ops, xl, XLSTM_SERVE_ARGS, xcont,
+                         XLSTM_WAVE_LOGIT_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recurrent_step(torch, xl, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 3x: {time.perf_counter() - t0:.1f} s")
 
     print(f"[5] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
           f"{plan.world}", flush=True)
@@ -3192,8 +3665,27 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[7] one DeepSeek decode step: B8 vs gather lowering", flush=True)
-    phase_decode_step(torch, ds, dev, DS_LOGIT_ATOL)
+    print("[7] one DeepSeek decode step: B8 vs gather lowering, and over "
+          "the contiguous latent cache", flush=True)
+    phase_decode_step(torch, ds, dev, DS_LOGIT_ATOL, contiguous=DS_LOGIT_ATOL)
+    # DeepSeek's 54.6 GB are gone before Jamba's 52.1 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    jamba = jamba_config()
+    print(f"[8] serve jamba-v0.1-52b at published widths ({jamba.num_layers} "
+          "of 32 layers): paged with scarce recurrent rows, contiguous, one "
+          "decode step", flush=True)
+    t0 = time.perf_counter()
+    j_launches, j_merges = phase_serve(torch, ops, jamba, JAMBA_PAGED_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve(torch, ops, jamba, JAMBA_CONTIG_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_decode_step(torch, jamba, dev, JAMBA_LOGIT_ATOL,
+                      contiguous=JAMBA_LOGIT_ATOL)
+    print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
 
     tr = "src/repro/kernels/tree_reduce/kernel.py"
     kernels = [dict(
@@ -3203,6 +3695,9 @@ def main(argv=None) -> int:
         replaces="src/repro/kernels/paged_attention/kernel.py:90",
         launches=launches, merge_launches=merges,
         qwen_launches=q_launches, qwen_merge_launches=q_merges,
+        contiguous_launches=contig_launches, soak_launches=soak_launches,
+        jamba_launches=j_launches, jamba_merge_launches=j_merges,
+        wave_identical=wave_same, xlstm_wave_identical=xl_same,
         shapes=KERNEL_SHAPES, max_abs_err=max_err, max_err=max_err,
         max_row_rel_err=max_rel, **timing)]
     for name, codec, line in (("decode_add_bf16", "bf16", 119),

@@ -1,25 +1,29 @@
-"""Serving entry point: continuous-batching engine over the paged KV cache.
+"""Serving entry point: continuous-batching engine over a slot pool.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --requests 16 --prompt-len 256 --gen 64 --gen-spread 32 \
-      --max-slots 8 --block-size 16 --prefill-chunk 64 --clock wall
+      --max-slots 8 --kv-mode paged --block-size 16 --prefill-chunk 64 \
+      --clock wall
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch gemma2-2b-smoke --device cpu --requests 6 --prompt-len 8 \
-      --gen 6 --max-slots 2
+      --gen 6 --max-slots 2 [--mode wave]
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch deepseek-v3-671b-smoke --device cpu --requests 6 \
-      --prompt-len 8 --gen 6 --max-slots 2
+      --arch jamba-v0.1-52b-smoke --device cpu --kv-mode paged \
+      --rec-slots 1 --requests 6 --prompt-len 8 --gen 6 --max-slots 2
 
 Port of ``repro.launch.serve`` with the same flags, plus ``--device``
-(default ``cuda``; a CUDA request without CUDA raises).  This slice serves
-from the paged KV cache only, so ``--kv-mode`` accepts ``paged`` (the
-default); ``--mode wave``, ``--slot-state contiguous``, ``--rec-slots`` and
-``--devices N > 1`` raise until the slices that port them.  Random-init
-params come from ``--seed``.  Prints the metrics report and the launch
-counts of the paged-attention kernels (GQA for attention layers, absorbed
-MLA for MLA layers).
+(default ``cuda``; a CUDA request without CUDA raises).  Every token-only
+architecture serves: attention, MLA, recurrent (xlstm-1.3b) and hybrid
+(jamba-v0.1-52b) stacks, over the contiguous KV cache (``--kv-mode
+contiguous``, the default) or the paged one, with recurrent layers on
+pooled state rows (``--rec-slots``).  ``--mode wave`` runs the
+wave-at-a-time oracle (``serve_waves``) over the contiguous cache.
+``--devices N > 1`` raises: multi-device serving is not ported.
+Random-init params come from ``--seed``.  Prints the metrics report and
+the launch counts of the paged-attention kernels (GQA for attention
+layers, absorbed MLA for MLA layers; only the paged cache runs them).
 
   --paged-kernel K  auto (the CUDA kernels on --device cuda, their plain
                     versions on the CPU) | ref (force gather-then-attend)
@@ -33,8 +37,8 @@ import argparse
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="Continuous-batching serving over the paged KV cache "
-                    "(the port: --kv-mode paged only).")
+        description="Continuous-batching serving over a slot pool (the "
+                    "port).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where params, cache and kernels live (default "
@@ -51,9 +55,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "slot for the next admission")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=16)
-    ap.add_argument("--kv-mode", choices=("paged",), default="paged",
-                    help="KV backend; this slice of the port serves from "
-                         "the paged cache only (contiguous: not ported)")
+    ap.add_argument("--kv-mode", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="KV backend: contiguous (one max_len row per "
+                         "slot) or paged (pooled blocks + block tables)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV: cache positions per physical block")
     ap.add_argument("--kv-blocks", type=int, default=0,
@@ -66,10 +71,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(gather-then-attend)")
     ap.add_argument("--slot-state", choices=("auto", "contiguous", "paged"),
                     default="auto",
-                    help="KV-layer backend override (contiguous: not "
-                         "ported)")
+                    help="KV-layer backend override (auto: follow "
+                         "--kv-mode); recurrent layers always use the "
+                         "recurrent-row backend")
     ap.add_argument("--rec-slots", type=int, default=0,
-                    help="recurrent-state rows (not ported: must be 0)")
+                    help="recurrent-state rows (0 = match --max-slots)")
     ap.add_argument("--clock", choices=("step", "wall"), default="step",
                     help="serve clock: step (virtual, deterministic) or "
                          "wall (measured seconds, idle gaps sleep)")
@@ -88,17 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(cfg, args: argparse.Namespace):
     """Serve ``args.requests`` random prompts with ``cfg``; returns
     (results {req_id: tokens}, metrics)."""
-    if args.mode == "wave":
-        raise NotImplementedError(
-            "--mode wave (serve_waves) is not ported yet")
-    if args.slot_state == "contiguous":
-        raise NotImplementedError(
-            "--slot-state contiguous: the contiguous KV backend is not "
-            "ported yet; this slice serves from the paged cache")
-    if args.rec_slots:
-        raise NotImplementedError(
-            f"--rec-slots {args.rec_slots}: recurrent state rows are not "
-            "ported yet (a later slice of the port)")
+    if args.mode == "wave" and args.kv_mode == "paged":
+        raise ValueError("--mode wave serves from the contiguous cache only")
     if args.devices > 1:
         raise NotImplementedError(
             f"--devices {args.devices}: one card is one device; "
@@ -110,7 +107,7 @@ def run(cfg, args: argparse.Namespace):
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import (EngineConfig, Request, ServeEngine,
-                                   parse_arrival_spec)
+                                   parse_arrival_spec, serve_waves)
 
     device = resolve_device(args.device)
     params = T.init_params(cfg, args.seed, device=device)
@@ -126,9 +123,10 @@ def run(cfg, args: argparse.Namespace):
         requests.append(Request(req_id=i, prompt=prompt, max_new_tokens=gen,
                                 arrival_s=arrivals[i]))
 
-    # the paged backend needs block_size | max_len
     max_len = args.prompt_len + args.gen + 1
-    max_len = -(-max_len // args.block_size) * args.block_size
+    if args.kv_mode == "paged":
+        # the paged backend needs block_size | max_len
+        max_len = -(-max_len // args.block_size) * args.block_size
     ecfg = EngineConfig(
         max_slots=args.max_slots,
         max_len=max_len,
@@ -136,36 +134,48 @@ def run(cfg, args: argparse.Namespace):
         temperature=args.temperature,
         eos_id=args.eos_id,
         seed=args.seed,
+        kv_mode=args.kv_mode,
+        slot_state=args.slot_state,
+        rec_slots=args.rec_slots,
         block_size=args.block_size,
         kv_blocks=args.kv_blocks,
         paged_kernel=args.paged_kernel,
         clock=args.clock)
 
-    print(f"arch={cfg.name} device={device} kv={args.kv_mode} "
-          f"requests={args.requests} "
+    print(f"arch={cfg.name} device={device} mode={args.mode} "
+          f"kv={args.kv_mode} requests={args.requests} "
           f"prompt={args.prompt_len} gen={args.gen}"
           f"{f'±{args.gen_spread}' if args.gen_spread else ''} "
-          f"slots={args.max_slots} arrival={args.arrival} "
-          f"block_size={args.block_size}")
+          f"slots={args.max_slots} arrival={args.arrival}"
+          + (f" block_size={args.block_size}" if args.kv_mode == "paged"
+             else ""))
 
-    engine = ServeEngine(cfg, params, ecfg)
-    print(f"slot-state plan: {engine.plan.describe()}")
     counts = ("LAUNCHES", "MERGE_LAUNCHES", "MLA_LAUNCHES",
               "MLA_MERGE_LAUNCHES")
     before = {c: getattr(pa_ops, c) for c in counts}
-    results = engine.run(requests)
+    if args.mode == "wave":
+        results, metrics = serve_waves(cfg, params, ecfg, requests)
+        lowering = "wave: contiguous cache"
+    else:
+        engine = ServeEngine(cfg, params, ecfg)
+        print(f"slot-state plan: {engine.plan.describe()}"
+              + (f" ({engine.rec.capacity} recurrent rows)"
+                 if engine.rec is not None else ""))
+        results = engine.run(requests)
+        metrics = engine.metrics
+        lowering = (f"paged_kernel={engine.paged_kernel}" if engine.paged
+                    else "contiguous cache")
     if device.type == "cuda":
         import torch
         torch.cuda.synchronize(device)
-    metrics = engine.metrics
 
     print(metrics.report())
     n = {c: getattr(pa_ops, c) - before[c] for c in counts}
     print(f"paged_attention kernel launches: {n['LAUNCHES']} (merges "
           f"{n['MERGE_LAUNCHES']}), paged_mla_attention kernel launches: "
           f"{n['MLA_LAUNCHES']} (merges {n['MLA_MERGE_LAUNCHES']}) "
-          f"(paged_kernel={engine.paged_kernel}, {metrics.decode_steps} "
-          f"decode steps x {cfg.num_layers} layers)")
+          f"({lowering}, {metrics.decode_steps} decode steps x "
+          f"{cfg.num_layers} layers)")
     shown = sorted(results)[:2]
     print("sample outputs:", [results[i][:8] for i in shown])
     return results, metrics

@@ -10,19 +10,21 @@ reference so the parity tests compare like with like:
   * softmax and normalisers run in f32, activations in the param dtype;
   * attention is GQA-grouped (KV heads are never replicated in memory).
 
-Ported: what paged serving (slices 1 and 3) and training (slice 2)
+Ported: what serving (slices 1, 3 and 10) and training (slice 2)
 reach: the attention core, unchunked and with checkpointed query blocks
-(``chunk_q``, training lengths), the paged KV primitives, GQA attention,
-MLA (multi-head latent attention with the absorbed-weight decode, slice
-3), the gated MLPs and MoE (sort-based capacity dispatch, slice 3).  The
-online-softmax KV chunking of long inference prefill and the contiguous
-KV cache raise ``NotImplementedError``.
+(``chunk_q``, training lengths), the paged KV primitives and the
+contiguous cache write (``_cache_update``), GQA attention with rope or
+no positional encoding, MLA (multi-head latent attention with the
+absorbed-weight decode, slice 3), the gated MLPs and MoE (sort-based
+capacity dispatch, slice 3).  The online-softmax KV chunking of long
+inference prefill and sinusoidal positions raise
+``NotImplementedError``.
 
 The training forward runs under autograd and writes nothing in place.  The
-paged primitives update the pool IN PLACE (``paged_scatter``,
-``copy_block``) and return it: the pools are the largest tensors of a
-serve run, nothing needs the pre-write value, and serving runs under
-``torch.inference_mode``.
+cache primitives update the cache IN PLACE (``paged_scatter``,
+``_cache_update``, ``copy_block``) and return it: the caches are the
+largest tensors of a serve run, nothing needs the pre-write value, and
+serving runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -290,6 +292,39 @@ def paged_scatter(pool, new, tables, offset):
     return pool
 
 
+def _cache_update(buf, new, offset):
+    """Write ``new`` [B,T,...] into the contiguous cache ``buf`` [B,S,...]
+    at ``offset``, IN PLACE; returns ``buf``.
+
+    * T == S: the write replaces the whole cache;
+    * T == 1 (decode): ``offset`` is a scalar or a per-row [B] tensor (the
+      serve engine's slots sit at independent lengths); row b writes
+      position ``offset[b]``, and an offset outside [0, S) writes nothing
+      (the reference's one-hot select over S matches no position);
+    * general T (chunked prefill): a scalar offset, clamped as
+      ``dynamic_update_slice`` clamps its start into [0, S - T].
+    """
+    S = buf.shape[1]
+    T = new.shape[1]
+    new = new.to(buf.dtype)
+    if T == S:
+        buf.copy_(new)
+        return buf
+    if T == 1:
+        off = torch.as_tensor(offset, device=buf.device)
+        if off.ndim == 0:
+            off = off.reshape(1).expand(buf.shape[0])
+        hit = torch.arange(S, device=buf.device)[None, :] == off[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
+        torch.where(hit, new, buf, out=buf)
+        return buf
+    if torch.as_tensor(offset).ndim != 0:
+        raise ValueError("multi-token cache writes need a scalar offset")
+    start = min(max(int(offset), 0), S - T)
+    buf[:, start:start + T] = new
+    return buf
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer (projections + rope + cache)
 # ---------------------------------------------------------------------------
@@ -316,10 +351,13 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
                     block_tables=None, paged_kernel="auto"):
     """x: [B,T,D]. Returns (out [B,T,D], new_kv or None).
 
-    Paged mode only: ``kv_cache`` leaves are pools [N, bs, Hkv, Dh] (written
-    in place) and ``block_tables`` [B, n] map virtual positions onto
-    physical blocks; ``cache_offset`` is a scalar or per-row [B] count of
-    tokens already cached.  ``paged_kernel="auto"`` (the default) routes
+    ``kv_cache`` is the contiguous cache {"k", "v"} [B, S, Hkv, Dh] when
+    ``block_tables`` is None (decode attends over the whole row; the
+    reference runs it outside any kernel, and so does the port), else
+    paged pools [N, bs, Hkv, Dh] that the [B, n] ``block_tables`` map
+    virtual positions onto.  Either is written in place.
+    ``cache_offset`` is a scalar or per-row [B] count of tokens already
+    cached.  In paged mode ``paged_kernel="auto"`` (the default) routes
     T==1 decode through ``kernels.paged_attention`` (the CUDA kernel on a
     CUDA pool, its plain version on a CPU pool); ``"ref"`` keeps the
     reference's gather-then-attend lowering."""
@@ -331,11 +369,12 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.pos_embed != "rope":
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_embed != "none":
         raise NotImplementedError(
             f"pos_embed {cfg.pos_embed!r} is not ported yet")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
         chunk_q = QUERY_CHUNK if T >= QUERY_CHUNK_THRESHOLD else None
@@ -345,28 +384,34 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
         new_kv = {"k": k, "v": v}
     else:
         if block_tables is None:
-            raise NotImplementedError(
-                "the contiguous KV cache is not ported yet; slice 1 serves "
-                "from the paged cache only")
-        k_pool = paged_scatter(kv_cache["k"], k, block_tables, cache_offset)
-        v_pool = paged_scatter(kv_cache["v"], v, block_tables, cache_offset)
-        new_kv = {"k": k_pool, "v": v_pool}
-        if paged_kernel not in ("auto", "ref"):
-            raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
-        if T == 1 and paged_kernel == "auto" and prefix_len is None:
-            o = paged_attention(q, k_pool, v_pool, block_tables,
-                                cache_offset, window=window,
-                                softcap=cfg.attn_softcap)
-            out = dense(p["wo"], o.reshape(B, T, H * Dh))
-            return out, new_kv
-        k_all = paged_gather(k_pool, block_tables)
-        v_all = paged_gather(v_pool, block_tables)
+            k_all = _cache_update(kv_cache["k"], k, cache_offset)
+            v_all = _cache_update(kv_cache["v"], v, cache_offset)
+            new_kv = {"k": k_all, "v": v_all}
+        else:
+            k_pool = paged_scatter(kv_cache["k"], k, block_tables,
+                                   cache_offset)
+            v_pool = paged_scatter(kv_cache["v"], v, block_tables,
+                                   cache_offset)
+            new_kv = {"k": k_pool, "v": v_pool}
+            if paged_kernel not in ("auto", "ref"):
+                raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
+            if T == 1 and paged_kernel == "auto" and prefix_len is None:
+                o = paged_attention(q, k_pool, v_pool, block_tables,
+                                    cache_offset, window=window,
+                                    softcap=cfg.attn_softcap)
+                out = dense(p["wo"], o.reshape(B, T, H * Dh))
+                return out, new_kv
+            k_all = paged_gather(k_pool, block_tables)
+            v_all = paged_gather(v_pool, block_tables)
         S = k_all.shape[1]
         pos_k = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
         pos_q = positions if positions.ndim > 1 else positions[None, :]
+        # a whole-prompt prefill at or past the threshold blocks its
+        # queries, as the reference's (positions from 0)
+        chunk_q = QUERY_CHUNK * 2 if T >= QUERY_CHUNK_THRESHOLD else None
         o = gqa_attention(q, k_all, v_all, pos_q=pos_q, pos_k=pos_k,
                           causal=True, window=window, prefix_len=prefix_len,
-                          attn_cap=cfg.attn_softcap)
+                          attn_cap=cfg.attn_softcap, chunk_q=chunk_q)
     out = dense(p["wo"], o.reshape(B, T, H * Dh))
     return out, new_kv
 
@@ -406,15 +451,19 @@ def apply_mla(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
               cache_offset=None, block_tables=None, paged_kernel="auto"):
     """Latent-cache MLA.  x: [B,T,D] → (out [B,T,D], new_cache).
 
-    Without a cache: the whole-sequence forward.  Paged mode only
-    otherwise: ``kv_cache`` is ``{"c_kv": [N,bs,r], "k_rope":
-    [N,bs,1,dr]}`` (written in place) addressed by ``block_tables``.
-    Prefill (T>1) gathers the latents and expands them through ``kv_up``
-    into per-head K and V.  Decode (T==1) stays in latent space (weight
-    absorption): ``paged_kernel="auto"`` (the default) routes it through
+    Without a cache: the whole-sequence forward.  With one, ``kv_cache``
+    is the contiguous latent cache ``{"c_kv": [B,S,r], "k_rope":
+    [B,S,1,dr]}`` when ``block_tables`` is None, else pools ``{"c_kv":
+    [N,bs,r], "k_rope": [N,bs,1,dr]}`` addressed by ``block_tables``;
+    either is written in place.  Prefill (T>1) expands the latents
+    through ``kv_up`` into per-head K and V.  Decode (T==1) stays in
+    latent space (weight absorption): over the contiguous cache it runs
+    ``_mla_absorbed_decode`` (no kernel, as in the reference); in paged
+    mode ``paged_kernel="auto"`` (the default) routes it through
     ``kernels.paged_attention.paged_mla_attention`` (the CUDA kernel on a
-    CUDA pool, its plain version on a CPU pool); ``"ref"`` gathers, then
-    runs ``_mla_absorbed_decode``, as the reference's "ref" lowering."""
+    CUDA pool, its plain version on a CPU pool) and ``"ref"`` gathers,
+    then runs ``_mla_absorbed_decode``, as the reference's "ref"
+    lowering."""
     m: MLAConfig = cfg.mla
     B, T, D = x.shape
     H = cfg.num_heads
@@ -430,11 +479,14 @@ def apply_mla(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
     k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
                         cfg.rope_theta)                       # [B,T,1,dr]
 
-    if kv_cache is not None:
-        if block_tables is None:
-            raise NotImplementedError(
-                "the contiguous latent cache is not ported yet; the port "
-                "serves MLA from the paged cache only")
+    if kv_cache is not None and block_tables is None:
+        c_kv = _cache_update(kv_cache["c_kv"], c_kv, cache_offset)
+        k_rope = _cache_update(kv_cache["k_rope"], k_rope, cache_offset)
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+        S = c_kv.shape[1]
+        pos_k = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        pos_q = positions if positions.ndim > 1 else positions[None, :]
+    elif kv_cache is not None:
         if paged_kernel not in ("auto", "ref"):
             raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
         ckv_pool = paged_scatter(kv_cache["c_kv"], c_kv, block_tables,
@@ -474,10 +526,13 @@ def apply_mla(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
     k_nope, v = up[..., :dn], up[..., dn:]
     k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    # training lengths block the queries; offset prefill stays below the
-    # threshold (``prefill_chunk`` refuses longer chunks)
-    chunk_q = QUERY_CHUNK if (kv_cache is None
-                              and T >= QUERY_CHUNK_THRESHOLD) else None
+    # training lengths block the queries, and so does a whole-prompt
+    # prefill past the threshold, in twice the blocks (the reference's);
+    # offset prefill stays below it (``prefill_chunk`` refuses longer
+    # chunks)
+    chunk_q = None
+    if T >= QUERY_CHUNK_THRESHOLD:
+        chunk_q = QUERY_CHUNK if kv_cache is None else QUERY_CHUNK * 2
     o = gqa_attention(qf, k, v, pos_q=pos_q, pos_k=pos_k, causal=True,
                       attn_cap=None, scale=1.0 / math.sqrt(dn + dr),
                       chunk_q=chunk_q)

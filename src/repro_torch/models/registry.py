@@ -1,11 +1,12 @@
 """Architecture registry: ``--arch <id>`` → ArchConfig, plus param counting.
 
 Mirrors ``repro/models/registry.py``.  The port carries gemma2-2b (slices
-1 and 2), deepseek-v3-671b (slice 3: MLA, MoE, MTP params) and the four
+1 and 2), deepseek-v3-671b (slice 3: MLA, MoE, MTP params), the four
 attention configs of slice 9 (qwen2.5-3b, phi4-mini-3.8b, granite-34b,
-qwen3-moe-235b-a22b); the other four ids of the reference are known here
-and raise ``NotImplementedError`` until the slice that ports their layers
-(SSM, frontends) lands.
+qwen3-moe-235b-a22b) and the recurrent and hybrid configs of slice 10
+(xlstm-1.3b, jamba-v0.1-52b; served only); the two frontend ids of the
+reference are known here and raise ``NotImplementedError`` until the
+slice that ports frontends lands.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ ARCH_IDS: List[str] = [
 # ids whose config (and layers) the port carries today
 PORTED_IDS: List[str] = ["gemma2-2b", "deepseek-v3-671b", "qwen2.5-3b",
                          "phi4-mini-3.8b", "granite-34b",
-                         "qwen3-moe-235b-a22b"]
+                         "qwen3-moe-235b-a22b", "xlstm-1.3b",
+                         "jamba-v0.1-52b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -49,7 +51,7 @@ def get_config(name: str) -> ArchConfig:
     if base not in PORTED_IDS:
         raise NotImplementedError(
             f"arch {base!r} is not ported yet (a later slice of the port: "
-            f"the remaining architectures); ported: {PORTED_IDS}")
+            f"the frontend architectures); ported: {PORTED_IDS}")
     cfg = importlib.import_module(_module_name(base)).CONFIG
     return cfg.reduced() if smoke else cfg
 

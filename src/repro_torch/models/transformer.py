@@ -7,24 +7,33 @@ loops over them in Python — eager PyTorch has no trace to keep small.
 layout.
 
 API (dense GQA models: slice 1 paged serving, slice 2 training; MLA and
-MoE models, DeepSeek-V3: slice 3 paged serving):
+MoE models, DeepSeek-V3: slice 3 paged serving; the contiguous cache,
+recurrent (mamba, mLSTM, sLSTM) and hybrid stacks: slice 10 serving):
 
   init_params(cfg, seed=0, device=...)          -> params
   forward(params, cfg, tokens)                  -> logits [B,T,V]
   loss_fn(params, cfg, batch)                   -> (loss, metrics)
+  init_cache(cfg, batch, max_len)               -> per-layer caches
   init_paged_cache(cfg, num_blocks, block_size) -> per-layer pools
+  init_hybrid_cache(cfg, kv_batch=, kv_len=, rec_batch=)
+                                                -> per-layer caches
+  prefill(params, cfg, tokens, cache)           -> (last logits, cache, T)
   decode_step(params, cfg, token, cache, offset, block_tables, ...)
                                                 -> (logits, cache)
   prefill_chunk(params, cfg, tokens, cache, offset, ...)
                                                 -> (logits | None, cache)
+  take_slot / write_slot / reset_slot, take_state / write_state /
+  reset_slot_state                              (the serve engine's
+                                                 per-slot surgery)
   copy_block(cache, src, dst)                   -> cache (copy-on-write)
 
-Cache pools are written in place and returned.  ``params["mtp"]`` (the
-multi-token-prediction modules) is built and carried as the reference's,
-but only the training loss reads it, and training MTP/MoE models is not
-ported: ``loss_fn`` raises for them.  The loss is
-sequence-chunked (logits for 512 tokens at a time, each chunk under
-``torch.utils.checkpoint``), so a 256k-vocab train step never holds
+Caches are written in place and returned; a recurrent layer without
+``rec_rows`` returns its new state as new tensors.  ``params["mtp"]``
+(the multi-token-prediction modules) is built and carried as the
+reference's, but only the training loss reads it, and training MTP, MoE
+and recurrent models is not ported: ``loss_fn`` raises for them.  The
+loss is sequence-chunked (logits for 512 tokens at a time, each chunk
+under ``torch.utils.checkpoint``), so a 256k-vocab train step never holds
 [B,T,V] logits.
 """
 
@@ -40,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from . import layers as L
+from . import ssm as S
 
 ATTN_KINDS = ("attn", "attn_moe", "local", "global")
 MLA_KINDS = ("mla", "mla_moe")
@@ -48,8 +58,9 @@ XLSTM_KINDS = ("mlstm", "slstm")
 MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
 REC_KINDS = MAMBA_KINDS + XLSTM_KINDS
 
-# layer kinds the port can build and run today
-PORTED_KINDS = ("attn", "attn_moe", "local", "global", "mla", "mla_moe")
+# layer kinds the port can build and run today (the recurrent ones are
+# served only: their backward is not ported)
+PORTED_KINDS = ATTN_KINDS + MLA_KINDS + MAMBA_KINDS + XLSTM_KINDS
 
 LOSS_CHUNK = 512
 
@@ -58,16 +69,27 @@ def _check_ported(cfg: ArchConfig, *, training: bool = False) -> None:
     for kind in cfg.layer_pattern:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet "
-                "(recurrent layers come with a later slice of the port)")
+                f"{cfg.name}: unknown layer kind {kind!r}")
     if cfg.frontend or cfg.prefix_lm:
         raise NotImplementedError(
             f"{cfg.name}: frontends and prefix-LM are not ported yet")
-    if training and (cfg.mtp_depth or cfg.moe is not None):
+    if training and (cfg.mtp_depth or cfg.moe is not None
+                     or has_recurrent(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: training MTP and MoE models (the MTP loss, the "
-            "0.01 * aux balance loss, the MoE backward) is not ported yet; "
+            "0.01 * aux balance loss, the MoE backward) and recurrent "
+            "models (the backward through the scans) is not ported yet; "
             "the port serves them")
+
+
+def has_recurrent(cfg: ArchConfig) -> bool:
+    """True if any layer carries O(1) recurrent state (mamba / xLSTM)."""
+    return any(k in REC_KINDS for k in cfg.layer_pattern)
+
+
+def has_attention(cfg: ArchConfig) -> bool:
+    """True if any layer carries a positional KV cache (attention / MLA)."""
+    return any(k in ATTN_KINDS or k in MLA_KINDS for k in cfg.layer_pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +101,20 @@ def init_block(cfg: ArchConfig, kind: str, *, device, generator):
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt = L._dtype(cfg)
-    mixer = L.init_mla if kind in MLA_KINDS else L.init_attention
+    if kind == "mlstm":
+        return {"cell": S.init_mlstm(cfg, device=device,
+                                     generator=generator)}
+    if kind == "slstm":
+        return {"cell": S.init_slstm(cfg, device=device,
+                                     generator=generator)}
     p: Dict[str, Any] = {
-        "norm1": L.init_rmsnorm(cfg.d_model, dtype=dt, device=device),
-        "attn": mixer(cfg, device=device, generator=generator),
-        "norm2": L.init_rmsnorm(cfg.d_model, dtype=dt, device=device),
-    }
+        "norm1": L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)}
+    if kind in MAMBA_KINDS:
+        p["mamba"] = S.init_mamba(cfg, device=device, generator=generator)
+    else:
+        mixer = L.init_mla if kind in MLA_KINDS else L.init_attention
+        p["attn"] = mixer(cfg, device=device, generator=generator)
+    p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)
     if cfg.norm_style == "sandwich":
         p["post1"] = L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)
         p["post2"] = L.init_rmsnorm(cfg.d_model, dtype=dt, device=device)
@@ -93,13 +123,53 @@ def init_block(cfg: ArchConfig, kind: str, *, device, generator):
     return p
 
 
+def _gather_rec(cache, rec_rows):
+    """The pooled recurrent state at rows ``rec_rows`` [B] (a copy)."""
+    return {k: x[rec_rows] for k, x in cache.items()}
+
+
+def _scatter_rec(cache, new_state, rec_rows):
+    """Write per-row state back into the pool, IN PLACE; returns the pool.
+    Rows gated off by the update mask carry their own gathered value, so
+    duplicate sentinel indices (row 0 for every masked batch row) all
+    write identical bits."""
+    for k, full in cache.items():
+        full[rec_rows] = new_state[k].to(full.dtype)
+    return cache
+
+
+def _recurrent(fwd, p, cfg, h, cache, rec_rows, update_mask):
+    """A recurrent mixer over the pooled rows ``rec_rows`` of ``cache``
+    (gathered, advanced, scattered back), or over ``cache`` itself (one
+    state row per batch row) when ``rec_rows`` is None."""
+    state = cache
+    if cache is not None and rec_rows is not None:
+        state = _gather_rec(cache, rec_rows)
+    out, new_state = fwd(p, cfg, h, state, update_mask=update_mask)
+    if cache is not None and rec_rows is not None:
+        new_state = _scatter_rec(cache, new_state, rec_rows)
+    return out, new_state
+
+
 def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
                 cache=None, offset=None, prefix_len=None, block_tables=None,
-                paged_kernel="auto"):
+                paged_kernel="auto", rec_rows=None, update_mask=None):
     """Returns (h, new_cache, aux): aux is the MoE load-balance loss (an
-    f32 zero for dense blocks)."""
+    f32 zero for dense blocks).
+
+    ``rec_rows`` [B] addresses pooled recurrent state (serve engine): the
+    block gathers each batch row's state from the pool, advances it, and
+    scatters it back.  ``update_mask`` [B,T] prefix-gates the advance per
+    row (chunk padding, inactive decode slots); attention layers ignore
+    it — their masked writes land on causally hidden positions instead."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind in XLSTM_KINDS:
+        fwd = S.mlstm_forward if kind == "mlstm" else S.slstm_forward
+        h, new_cache = _recurrent(fwd, p["cell"], cfg, h, cache, rec_rows,
+                                  update_mask)
+        return h, new_cache, aux
     sandwich = cfg.norm_style == "sandwich"
     x = L.rms_norm(p["norm1"], h, cfg.norm_eps)
     if kind in MLA_KINDS:
@@ -107,6 +177,9 @@ def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
             p["attn"], cfg, x, positions=positions, kv_cache=cache,
             cache_offset=offset, block_tables=block_tables,
             paged_kernel=paged_kernel)
+    elif kind in MAMBA_KINDS:
+        mix, new_cache = _recurrent(S.mamba_forward, p["mamba"], cfg, x,
+                                    cache, rec_rows, update_mask)
     else:
         window = cfg.sliding_window if kind == "local" else None
         mix, new_cache = L.apply_attention(
@@ -121,7 +194,6 @@ def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
         y, aux = L.apply_moe(p["ffn"], cfg, x)
     else:
         y = L.apply_mlp(p["ffn"], cfg, x)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if sandwich:
         y = L.rms_norm(p["post2"], y, cfg.norm_eps)
     return h + y, new_cache, aux
@@ -132,28 +204,83 @@ def apply_block(p, cfg: ArchConfig, kind: str, h, *, positions,
 # ---------------------------------------------------------------------------
 
 
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, *,
+                 device):
+    """One layer's zeroed cache, as the reference's (``jnp.zeros``: a masked
+    slot must never hold NaN).  KV leaves [batch, max_len, ...] (a paged
+    pool is ``batch`` = blocks, ``max_len`` = block size); recurrent leaves
+    [batch, ...] state rows, f32 but the conv window (the model dtype)."""
+    dt = L._dtype(cfg)
+    z = lambda *shape, dtype=dt: torch.zeros(shape, dtype=dtype,
+                                             device=device)
+    f32 = torch.float32
+    if kind in ATTN_KINDS:
+        hkv, dh = cfg.num_kv_heads, cfg.head_dim
+        return {"k": z(batch, max_len, hkv, dh),
+                "v": z(batch, max_len, hkv, dh)}
+    if kind in MLA_KINDS:
+        m = cfg.mla
+        return {"c_kv": z(batch, max_len, m.kv_lora_rank),
+                "k_rope": z(batch, max_len, 1, m.qk_rope_head_dim)}
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    if kind in MAMBA_KINDS:
+        return {"conv": z(batch, s.d_conv - 1, d_in),
+                "h": z(batch, d_in, s.d_state, dtype=f32)}
+    if kind == "mlstm":
+        nh, dh = s.num_heads, d_in // s.num_heads
+        return {"conv": z(batch, s.d_conv - 1, d_in),
+                "C": z(batch, nh, dh, dh, dtype=f32),
+                "n": z(batch, nh, dh, dtype=f32),
+                "m": z(batch, nh, dtype=f32)}
+    if kind == "slstm":
+        D = cfg.d_model
+        return {"conv": z(batch, s.d_conv - 1, D),
+                **{k: z(batch, D, dtype=f32) for k in ("c", "n", "h", "m")}}
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Contiguous caches, one dict per layer: one ``max_len`` row per batch
+    row for KV layers, one state row per batch row for recurrent ones."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    return [_block_cache(cfg, kind, batch, max_len, device=dev)
+            for kind in cfg.layer_pattern]
+
+
 def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int, *,
                      device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Pooled paged cache, one dict per layer (axis 0 = PHYSICAL BLOCK):
     attention layers {"k", "v"}, each [num_blocks, block_size, Hkv, Dh];
     MLA layers the latent pair {"c_kv": [num_blocks, block_size, r],
-    "k_rope": [num_blocks, block_size, 1, dr]}.  Zeroed, as the
-    reference's ``jnp.zeros``: a masked slot must never hold NaN."""
+    "k_rope": [num_blocks, block_size, 1, dr]}.  Positional caches only: a
+    recurrent state has no positions to page."""
+    for kind in cfg.layer_pattern:
+        if kind in REC_KINDS:
+            raise ValueError(
+                f"{cfg.name}: layer kind {kind!r} has a recurrent cache; "
+                "the paged backend supports attention/MLA only — use "
+                "init_hybrid_cache for mixed stacks")
+    return init_cache(cfg, num_blocks, block_size, device=device)
+
+
+def init_hybrid_cache(cfg: ArchConfig, *, kv_batch: int, kv_len: int,
+                      rec_batch: int, device="cuda"
+                      ) -> List[Dict[str, torch.Tensor]]:
+    """SlotState cache for mixed stacks: each layer's leaves sized by its
+    backend.  Positional (attention / MLA) leaves get the KV geometry:
+    ``(kv_batch, kv_len)`` is ``(max_slots, max_len)`` for the contiguous
+    backend or ``(num_blocks, block_size)`` for the paged one.  Recurrent
+    leaves get ``rec_batch`` pooled state rows (row 0 is the sentinel row
+    masked decode slots address, so pass usable rows + 1)."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    dt = L._dtype(cfg)
-    z = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
-    N, bs = num_blocks, block_size
-    out = []
-    for kind in cfg.layer_pattern:
-        if kind in MLA_KINDS:
-            m = cfg.mla
-            out.append({"c_kv": z(N, bs, m.kv_lora_rank),
-                        "k_rope": z(N, bs, 1, m.qk_rope_head_dim)})
-        else:
-            out.append({"k": z(N, bs, cfg.num_kv_heads, cfg.head_dim),
-                        "v": z(N, bs, cfg.num_kv_heads, cfg.head_dim)})
-    return out
+    return [_block_cache(cfg, kind, rec_batch, 0, device=dev)
+            if kind in REC_KINDS else
+            _block_cache(cfg, kind, kv_batch, kv_len, device=dev)
+            for kind in cfg.layer_pattern]
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +338,7 @@ def _embed(params, cfg: ArchConfig, tokens):
 
 def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
                   offset=None, prefix_len=None, block_tables=None,
-                  paged_kernel="auto"):
+                  paged_kernel="auto", rec_rows=None, update_mask=None):
     """Run every layer in order (the reference scans stacked segments).
     The blocks' MoE aux losses are dropped: only training reads them."""
     new_caches = []
@@ -220,7 +347,8 @@ def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
         h, nc, _aux = apply_block(
             params["layers"][i], cfg, kind, h, positions=positions, cache=c,
             offset=offset, prefix_len=prefix_len, block_tables=block_tables,
-            paged_kernel=paged_kernel)
+            paged_kernel=paged_kernel, rec_rows=rec_rows,
+            update_mask=update_mask)
         new_caches.append(nc)
     return h, (None if caches is None else new_caches)
 
@@ -284,7 +412,8 @@ def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
     """batch: {tokens [B,T], labels [B,T]} (integer tensors); labels < 0
     are masked.  Returns (loss, metrics) with metrics {"xent", "aux"}, as
     the reference's dense path (aux is the MoE balance loss: 0 here).
-    Raises for MTP and MoE models, whose training is not ported yet."""
+    Raises for MTP, MoE and recurrent models, whose training is not
+    ported yet."""
     _check_ported(cfg, training=True)
     tokens, labels = batch["tokens"], batch["labels"]
     T = tokens.shape[1]
@@ -299,21 +428,38 @@ def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
 
 
 # ---------------------------------------------------------------------------
-# inference: chunked prefill + decode over the paged cache
+# inference: prefill + decode over the contiguous, paged or hybrid cache
 # ---------------------------------------------------------------------------
 
 
+def prefill(params, cfg: ArchConfig, tokens, cache):
+    """Fill the cache with the prompt [B,T] from position 0 (the wave
+    oracle's batch prefill); returns (logits [B,1,V] of the last position,
+    cache, T)."""
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+    h = _embed(params, cfg, tokens)
+    h, new_caches = _run_segments(params, cfg, h, positions=positions,
+                                  caches=cache, offset=0)
+    h_last = L.rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return _head(params, cfg, h_last), new_caches, T
+
+
 def decode_step(params, cfg: ArchConfig, token, cache, offset,
-                block_tables=None, paged_kernel="auto"):
+                block_tables=None, paged_kernel="auto", rec_rows=None,
+                active=None):
     """token: [B,1] ints; offset: tokens already cached — a scalar or a
-    per-row [B] tensor.  ``block_tables`` [B, n] addresses the paged pools
-    (written in place).  ``paged_kernel="auto"`` (the default) routes
-    attention through ``kernels.paged_attention`` (the CUDA kernel on a
-    CUDA cache, its plain version on the CPU); ``"ref"`` gathers, then
-    attends."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "decode over the contiguous KV cache is not ported yet")
+    per-row [B] tensor.  Without ``block_tables`` the KV layers use the
+    contiguous cache (one row per batch row; attention over the whole row,
+    as the reference, outside any kernel).  ``block_tables`` [B, n]
+    addresses the paged pools instead; there ``paged_kernel="auto"`` (the
+    default) routes attention through ``kernels.paged_attention`` (the
+    CUDA kernel on a CUDA cache, its plain version on the CPU) and
+    ``"ref"`` gathers, then attends.  Caches are written in place.
+
+    Recurrent layers: ``rec_rows`` [B] addresses each batch row's pooled
+    state row and ``active`` [B] bool gates the state advance — inactive
+    rows map to the sentinel row 0 and leave it unchanged."""
     B = token.shape[0]
     dev = token.device
     off = torch.as_tensor(offset, dtype=torch.int32, device=dev)
@@ -321,25 +467,35 @@ def decode_step(params, cfg: ArchConfig, token, cache, offset,
         positions = off[:, None]
     else:
         positions = off.reshape(1, 1).expand(B, 1)
+    update_mask = None
+    if active is not None:
+        update_mask = torch.as_tensor(active, device=dev).reshape(B, 1)             .to(torch.bool)
     h = _embed(params, cfg, token)
     h, new_caches = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
                                   block_tables=block_tables,
-                                  paged_kernel=paged_kernel)
+                                  paged_kernel=paged_kernel,
+                                  rec_rows=rec_rows, update_mask=update_mask)
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _head(params, cfg, h), new_caches
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, offset,
-                  with_logits: bool = True, block_tables=None):
-    """Write a prompt chunk [B,T] at cache positions [offset, offset+T).
+                  with_logits: bool = True, block_tables=None,
+                  rec_rows=None, valid=None):
+    """Write a prompt chunk [B,T] at cache positions [offset, offset+T)
+    (the contiguous cache, or the paged pools through ``block_tables``).
 
     Returns logits for the WHOLE chunk [B,T,V] (the engine picks the real
     last position) — or None with ``with_logits=False``, which skips the
-    full-vocab head on interior chunks — and the updated cache."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "prefill into the contiguous KV cache is not ported yet")
+    full-vocab head on interior chunks — and the updated cache.
+
+    Positional caches tolerate padding anywhere (garbage positions stay
+    causally hidden until overwritten); recurrent caches would advance on
+    it, so recurrent-bearing archs pass ``valid``, the count of real
+    tokens from the chunk start, and ``rec_rows`` [B] addressing the
+    pooled state rows: the state advances over exactly the first
+    ``valid`` positions and freezes on the padded tail."""
     B, T = tokens.shape
     if T >= L.QUERY_CHUNK_THRESHOLD:
         raise ValueError(
@@ -348,16 +504,116 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, offset,
             "threshold — use smaller chunks")
     dev = tokens.device
     off = int(offset)
-    positions = (off + torch.arange(T, dtype=torch.int32, device=dev)
-                 )[None, :].expand(B, T)
+    ar = torch.arange(T, dtype=torch.int32, device=dev)
+    positions = (off + ar)[None, :].expand(B, T)
+    update_mask = None
+    if valid is not None:
+        update_mask = (ar < int(valid))[None, :].expand(B, T)
     h = _embed(params, cfg, tokens)
     h, new_caches = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
-                                  block_tables=block_tables)
+                                  block_tables=block_tables,
+                                  rec_rows=rec_rows, update_mask=update_mask)
     if not with_logits:
         return None, new_caches
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _head(params, cfg, h), new_caches
+
+
+# ---------------------------------------------------------------------------
+# per-slot cache surgery (serve engine)
+# ---------------------------------------------------------------------------
+#
+# Cache leaves are per layer [B, ...]: axis 0 is the slot row of a
+# contiguous KV leaf, the physical block of a paged one, the pooled state
+# row of a recurrent one.  Admission takes a slot's view, prefills it and
+# writes it back; completion resets the slot.  The views share the cache's
+# storage, so a prefill into one already lands in place and the write-back
+# copies nothing.
+
+
+def _take(x, slot: int):
+    return x[slot:slot + 1]
+
+
+def _put(x, y, slot: int) -> None:
+    dst = x[slot:slot + 1]
+    if not (y.data_ptr() == dst.data_ptr() and y.stride() == dst.stride()
+            and y.shape == dst.shape and y.dtype == dst.dtype):
+        dst.copy_(y)
+
+
+def _map_layers(cfg, cache, fn_for_kind):
+    """Apply ``fn_for_kind(kind) -> leaf_fn | None`` over each layer's
+    leaves (None = leave the layer's leaves as they are)."""
+    out = []
+    for kind, layer in zip(cfg.layer_pattern, cache):
+        fn = fn_for_kind(kind)
+        out.append(layer if fn is None else
+                   {k: fn(x) for k, x in layer.items()})
+    return out
+
+
+def take_slot(cache, slot: int):
+    """One slot's cache as a batch-1 view (leaves [1, ...])."""
+    return [{k: _take(x, slot) for k, x in layer.items()} for layer in cache]
+
+
+def write_slot(cache, sub, slot: int):
+    """Write a batch-1 slot cache (from ``take_slot``) back at ``slot``."""
+    for layer, s in zip(cache, sub):
+        for k, x in layer.items():
+            _put(x, s[k], slot)
+    return cache
+
+
+def reset_slot(cache, slot: int):
+    """Zero one slot's rows in every cache leaf, other slots untouched."""
+    for layer in cache:
+        for x in layer.values():
+            x[slot].zero_()
+    return cache
+
+
+# Kind-aware variants (the SlotState protocol): in a hybrid cache axis 0
+# means "slot row" for contiguous KV leaves, "physical block" for paged
+# ones and "pooled state row" for recurrent ones, so slot surgery walks
+# the config beside the cache and touches only the leaves whose backend it
+# addresses.
+
+
+def take_state(cfg: ArchConfig, cache, slot: int):
+    """One contiguous-KV slot's rows as a batch-1 view; recurrent leaves
+    pass through WHOLE (the forward addresses them by ``rec_rows``)."""
+    return _map_layers(cfg, cache, lambda kind: None if kind in REC_KINDS
+                       else (lambda x: _take(x, slot)))
+
+
+def write_state(cfg: ArchConfig, cache, sub, slot: int):
+    """Write a ``take_state`` view back: contiguous-KV leaves land in the
+    slot's row; recurrent leaves come back whole (the forward already
+    scattered their rows in place)."""
+    out = []
+    for kind, full, s in zip(cfg.layer_pattern, cache, sub):
+        if kind in REC_KINDS:
+            out.append(s)
+            continue
+        for k, x in full.items():
+            _put(x, s[k], slot)
+        out.append(full)
+    return out
+
+
+def reset_slot_state(cfg: ArchConfig, cache, slot=None, rec_row=None):
+    """Zero a contiguous-KV slot row (``slot``) and/or a pooled recurrent
+    state row (``rec_row``); None leaves that backend untouched (paged KV
+    leaves are never touched: block freshness is the allocator's job)."""
+    for kind, layer in zip(cfg.layer_pattern, cache):
+        row = rec_row if kind in REC_KINDS else slot
+        if row is not None:
+            for x in layer.values():
+                x[row].zero_()
+    return cache
 
 
 def copy_block(cache, src: int, dst: int):

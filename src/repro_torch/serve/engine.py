@@ -1,38 +1,57 @@
-"""Continuous-batching serve engine over the paged KV cache (port of
-``repro/serve/engine.py``, paged path).
+"""Continuous-batching serve engine over the SlotState protocol (port of
+``repro/serve/engine.py``): per-layer decode-state backends (contiguous
+KV, paged KV, recurrent rows) composed from the architecture config.
 
-A fixed pool of ``max_slots`` decode slots runs over one pooled KV cache;
-a queued request is admitted the moment EOS or its budget frees a slot and
-the block pool can hold its prompt:
+A fixed pool of ``max_slots`` decode slots runs over one shared cache and
+a queued request is admitted the moment EOS or its budget frees a slot
+and every backend it needs has room:
 
   * **fixed-shape decode**: every decode step is one call over the full
-    [S] slot batch with per-slot offsets; inactive rows carry an
-    all-sentinel block table and the sentinel offset, so their writes land
-    in the garbage block 0 and their outputs are dropped;
+    [S] slot batch with per-slot offsets; inactive rows write to the
+    cache's sentinel position (contiguous: the row's last position, paged:
+    the garbage block 0), gate their recurrent advance off on the
+    sentinel row 0, and their outputs are dropped;
   * **chunked admission prefill**: prompts stream through
     [1, prefill_chunk] calls (``transformer.prefill_chunk``) interleaved
     between decode steps;
-  * **paged KV**: admission is free-BLOCK driven, identical prompt
-    prefixes share refcounted blocks (copy-on-write before a shared block
-    is rewritten), and when the pool runs dry mid-decode the YOUNGEST
-    request is preempted and requeued;
   * **sampling**: greedy is ``argmax``; with ``temperature > 0`` token t of
     request r is a Gumbel-max draw from a generator seeded by
     ``(seed, r, t)`` alone, so outputs do not depend on slot, admission
-    order, pool size or preemption (the reference's ``fold_in`` discipline;
-    the bits differ from JAX's).
+    order, pool size, state backend or preemption (the reference's
+    ``fold_in`` discipline; the bits differ from JAX's).
 
-Where the attention of a decode step runs follows ``paged_kernel``:
+Per-layer state backends (``serve.slot_state.StatePlan``): attention / MLA
+layers follow the engine's KV mode, recurrent layers (mamba / xLSTM)
+always take the recurrent-row backend, so hybrid stacks (Jamba) mix both
+in one run:
+
+  * ``contiguous`` KV (the default, as the reference's): one ``max_len``
+    cache row per slot; admission is free-slot driven.  Decode attends
+    over the whole row with the model's own torch code (the reference runs
+    it outside any Pallas kernel), so no paged-attention kernel launches.
+  * ``paged`` KV: one pooled tensor of ``kv_blocks`` x ``block_size``
+    positions per leaf, addressed by block tables; admission is free-BLOCK
+    driven, identical prompt prefixes share refcounted blocks
+    (copy-on-write before a shared block is rewritten), and when the pool
+    runs dry mid-decode the YOUNGEST request is preempted and requeued.
+  * ``recurrent`` rows: O(1) per-request state in a pooled
+    ``[rec_slots + 1, ...]`` leaf (row 0 = sentinel).  Admission takes one
+    row, a SECOND resource beside KV blocks: both must be free before
+    either commits.  Prefill chunks stay on the aligned ``[k·C, (k+1)·C)``
+    grid with the padded tail gated off by a validity mask, so the state
+    advances over every prompt token exactly once.  Prefix sharing is off
+    for recurrent-bearing archs: a hit would skip the recurrence.
+
+Where the attention of a paged decode step runs follows ``paged_kernel``:
 "auto" routes it through ``kernels.paged_attention`` (the CUDA kernels when
 the cache lives on CUDA: GQA for attention layers, absorbed MLA for MLA
 layers; their plain versions on the CPU); "ref" forces the reference's
-gather-then-attend lowering.  The engine's device is its
-params' device.
+gather-then-attend lowering.  The engine's device is its params' device.
 
-The engine serves from the paged KV cache only.  Not ported yet: the
-contiguous KV backend (no config field selects it; the CLI's
-``--slot-state contiguous`` raises), recurrent/hybrid state rows, mesh
-sharding and ``serve_waves`` (``NotImplementedError``).
+``serve_waves`` is the wave-at-a-time loop kept as the TEST ORACLE: it
+batch-prefills whole prompts over the contiguous cache with no chunking,
+no masking and no slot reuse, so any engine output can be checked against
+it token for token.  Not ported: mesh sharding (one card is one device).
 """
 
 from __future__ import annotations
@@ -49,7 +68,7 @@ from repro_torch.models import transformer as T
 from .blocks import BlockAllocator, NoFreeBlocks
 from .metrics import ServeMetrics
 from .queue import Request, RequestQueue
-from .slot_state import StatePlan
+from .slot_state import RecurrentRows, StatePlan
 from .slots import ACTIVE, PREFILL, SlotTable
 
 
@@ -64,17 +83,29 @@ class EngineConfig:
     temperature: float = 0.0
     eos_id: Optional[int] = None
     seed: int = 0
+    kv_mode: str = "contiguous"  # "contiguous" | "paged"
+    slot_state: str = "auto"     # "auto" (follow kv_mode) | "contiguous" |
+                                 # "paged" — KV-layer backend override;
+                                 # recurrent layers always take the
+                                 # recurrent-row backend
+    rec_slots: int = 0           # recurrent rows (0 = match max_slots);
+                                 # < max_slots makes rows the scarce
+                                 # admission resource
     block_size: int = 16         # paged: positions per physical block
     kv_blocks: int = 0           # paged: pool size (0 = match contiguous
                                  # capacity: 1 + max_slots * max_len / bs)
-    paged_kernel: str = "auto"   # "auto" (kernels.paged_attention: CUDA
-                                 # kernel on a CUDA cache, plain version on
-                                 # the CPU) | "ref" (gather-then-attend)
+    paged_kernel: str = "auto"   # paged decode: "auto"
+                                 # (kernels.paged_attention: CUDA kernel on
+                                 # a CUDA cache, plain version on the CPU)
+                                 # | "ref" (gather-then-attend)
     clock: str = "step"          # "step" (virtual, deterministic) | "wall"
     step_s: float = 0.01         # virtual seconds per engine step
 
 
 def _check_arch(cfg: ArchConfig) -> None:
+    """Every token-only architecture serves: attention/MLA layers through a
+    KV backend, recurrent layers through pooled state rows, hybrids
+    through both.  Frontend archs are refused (requests are token-only)."""
     if cfg.frontend:
         raise ValueError(
             f"{cfg.name}: frontend architectures are not servable "
@@ -109,7 +140,7 @@ def _make_sampler(seed: int, temperature: float):
 
 
 class ServeEngine:
-    """Fixed slot pool + paged KV backend + arrival queue."""
+    """Fixed slot pool + per-layer SlotState backends + arrival queue."""
 
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig,
                  mesh=None):
@@ -124,37 +155,76 @@ class ServeEngine:
             raise ValueError("chunks_per_step must be >= 1")
         if ecfg.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if ecfg.kv_mode not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_mode {ecfg.kv_mode!r}")
+        if ecfg.slot_state not in ("auto", "contiguous", "paged"):
+            raise ValueError(f"unknown slot_state {ecfg.slot_state!r}")
         if ecfg.paged_kernel not in ("auto", "ref"):
             raise ValueError(f"unknown paged_kernel {ecfg.paged_kernel!r}")
         if ecfg.clock not in ("step", "wall"):
             raise ValueError(f"unknown clock {ecfg.clock!r}")
-        self.plan = StatePlan.resolve(cfg, "paged")
-        if self.plan.has_recurrent:
-            raise NotImplementedError(
-                "recurrent / hybrid state rows are not ported yet "
-                "(a later slice of the port)")
+        if ecfg.rec_slots < 0:
+            raise ValueError("rec_slots must be >= 0")
+        kv_mode = (ecfg.kv_mode if ecfg.slot_state == "auto"
+                   else ecfg.slot_state)
+        self.plan = StatePlan.resolve(cfg, kv_mode)
+        self.has_rec = self.plan.has_recurrent
+        self.has_kv = self.plan.has_kv
+        # "paged" only means something when there are positional leaves to
+        # page: a pure-recurrent arch ignores the KV mode
+        self.paged = self.has_kv and kv_mode == "paged"
         self.paged_kernel = ecfg.paged_kernel
+        # a padded chunk must fit the cache row
         self._chunk = min(ecfg.prefill_chunk, ecfg.max_len)
 
-        bs = ecfg.block_size
-        if ecfg.max_len % bs:
-            raise ValueError(
-                f"paged mode needs max_len ({ecfg.max_len}) divisible "
-                f"by block_size ({bs}): the gathered virtual KV view "
-                "must match the contiguous row shape bit-for-bit")
-        nblocks = ecfg.kv_blocks or (1 + ecfg.max_slots * (ecfg.max_len // bs))
-        self.allocator = BlockAllocator(nblocks, bs)
-        self.table = SlotTable(ecfg.max_slots, ecfg.max_len, block_size=bs)
+        if self.paged:
+            bs = ecfg.block_size
+            if ecfg.max_len % bs:
+                raise ValueError(
+                    f"paged mode needs max_len ({ecfg.max_len}) divisible "
+                    f"by block_size ({bs}): the gathered virtual KV view "
+                    "must match the contiguous row shape bit-for-bit")
+            nblocks = ecfg.kv_blocks or (
+                1 + ecfg.max_slots * (ecfg.max_len // bs))
+            self.allocator: Optional[BlockAllocator] = \
+                BlockAllocator(nblocks, bs)
+            self.table = SlotTable(ecfg.max_slots, ecfg.max_len,
+                                   block_size=bs)
+        else:
+            self.allocator = None
+            self.table = SlotTable(ecfg.max_slots, ecfg.max_len)
+
+        # the second admission resource: one pooled state row per live
+        # request on recurrent-bearing archs
+        self.rec: Optional[RecurrentRows] = None
+        if self.has_rec:
+            self.rec = RecurrentRows(ecfg.rec_slots or ecfg.max_slots)
 
         self.queue = RequestQueue()
         self.metrics = ServeMetrics(max_slots=ecfg.max_slots,
                                     clock=ecfg.clock, step_s=ecfg.step_s)
         self.results: Dict[int, List[int]] = {}
+        self._admission_hold = 0     # steps left with admission stalled
 
         self.params = params
         self.device = params["embed"].device
-        self.cache = T.init_paged_cache(cfg, self.allocator.num_blocks, bs,
-                                        device=self.device)
+        if self.has_rec:
+            # KV leaves sized by the KV backend's geometry, recurrent leaves
+            # by the row pool (+ sentinel row 0)
+            if self.paged:
+                kv_batch, kv_len = self.allocator.num_blocks, ecfg.block_size
+            else:
+                kv_batch, kv_len = ecfg.max_slots, ecfg.max_len
+            self.cache = T.init_hybrid_cache(
+                cfg, kv_batch=kv_batch, kv_len=kv_len,
+                rec_batch=self.rec.capacity + 1, device=self.device)
+        elif self.paged:
+            self.cache = T.init_paged_cache(cfg, self.allocator.num_blocks,
+                                            ecfg.block_size,
+                                            device=self.device)
+        else:
+            self.cache = T.init_cache(cfg, ecfg.max_slots, ecfg.max_len,
+                                      device=self.device)
         self._sample = _make_sampler(ecfg.seed, ecfg.temperature)
 
     def _put(self, x: np.ndarray, dtype=None) -> torch.Tensor:
@@ -171,15 +241,17 @@ class ServeEngine:
                 raise ValueError(
                     f"request {r.req_id}: prompt+gen {need} exceeds "
                     f"max_len {self.ecfg.max_len}")
-            # the last decode write lands at position prompt+gen-2, so a
-            # lone request must fit the pool or it would preempt itself
-            worst = (len(r.prompt) + r.max_new_tokens - 2) \
-                // self.allocator.block_size + 1
-            if worst > self.allocator.capacity:
-                raise ValueError(
-                    f"request {r.req_id}: worst case {worst} blocks "
-                    f"exceeds the pool ({self.allocator.capacity} "
-                    "usable blocks)")
+            if self.paged:
+                # the last decode write lands at position prompt+gen-2, so
+                # a lone request must fit the pool or it would preempt
+                # itself
+                worst = (len(r.prompt) + r.max_new_tokens - 2) \
+                    // self.allocator.block_size + 1
+                if worst > self.allocator.capacity:
+                    raise ValueError(
+                        f"request {r.req_id}: worst case {worst} blocks "
+                        f"exceeds the pool ({self.allocator.capacity} "
+                        "usable blocks)")
         for r in requests:
             self.metrics.on_submit(r.req_id, r.arrival_s, len(r.prompt))
         self.queue.submit(requests)
@@ -190,14 +262,19 @@ class ServeEngine:
                                self.allocator.capacity)
 
     def _free_resources(self, slot) -> None:
-        if slot.blocks:
+        """Hand every backend resource the slot holds back to its pool."""
+        if self.allocator is not None and slot.blocks:
             self.allocator.free_blocks(slot.blocks)
             slot.blocks = []
             self._record_blocks()
+        if self.rec is not None and slot.rec_row:
+            self.rec.free(slot.rec_row)
+            slot.rec_row = 0
 
     def _preempt(self, victim) -> None:
-        """Free the victim's blocks and send its request back to the
-        queue; its tokens regenerate exactly on re-serve."""
+        """Free the victim's resources (blocks AND recurrent row) and send
+        its request back to the queue; its tokens regenerate exactly on
+        re-serve (the wasted decode tokens are booked by the metrics)."""
         req = victim.request
         self._free_resources(victim)
         self.table.release(victim)
@@ -249,11 +326,13 @@ class ServeEngine:
 
     def _try_admit_paged(self, slot, req) -> bool:
         """Map the request's prompt onto blocks (prefix hits shared, tail
-        fresh); False when the free list cannot cover the tail."""
+        fresh); False when the free list cannot cover the tail.
+        Recurrent-bearing archs skip prefix matching: a hit would skip the
+        prompt positions the recurrent state must advance over."""
         alloc = self.allocator
         bs = alloc.block_size
         plen = len(req.prompt)
-        matched = alloc.match_prefix(req.prompt)
+        matched = [] if self.has_rec else alloc.match_prefix(req.prompt)
         fresh_needed = alloc.blocks_for(plen) - len(matched)
         if fresh_needed > alloc.num_free:
             alloc.free_blocks(matched)
@@ -267,7 +346,8 @@ class ServeEngine:
         slot.blocks = matched + [alloc.alloc() for _ in range(fresh_needed)]
         slot.prefill_pos = pos0
         self.metrics.on_admit(req.req_id)
-        self.metrics.on_prefix_lookup(pos0, plen)
+        if not self.has_rec:
+            self.metrics.on_prefix_lookup(pos0, plen)
         self._record_blocks()
         return True
 
@@ -277,10 +357,29 @@ class ServeEngine:
             req = self.queue.pop_ready(now_s)
             if req is None:
                 return
-            if not self._try_admit_paged(slot, req):
-                # requeue and keep FIFO order: admit nobody behind it
+            # TWO-RESOURCE admission: every backend must have room before
+            # either commits (nothing to unwind on failure); FIFO order is
+            # kept by requeueing and admitting nobody behind the request
+            if self.rec is not None and self.rec.num_free == 0:
                 self.queue.submit(req)
                 return
+            if self.paged:
+                if not self._try_admit_paged(slot, req):
+                    self.queue.submit(req)
+                    return
+            else:
+                self.table.assign(slot, req)
+                self.metrics.on_admit(req.req_id)
+            if self.rec is not None:
+                slot.rec_row = self.rec.alloc()
+            # a reused contiguous slot row and/or recurrent row starts
+            # zeroed (fresh paged blocks are written before they are read)
+            if self.rec is not None or not self.paged:
+                self.cache = T.reset_slot_state(
+                    self.cfg, self.cache,
+                    slot=slot.index if self.has_kv and not self.paged
+                    else None,
+                    rec_row=slot.rec_row if self.rec is not None else None)
 
     def _finish(self, slot) -> None:
         req = slot.request
@@ -298,13 +397,20 @@ class ServeEngine:
         return False
 
     def _prefill_tick(self) -> None:
-        """Advance up to ``chunks_per_step`` admission prefills one chunk:
-        short prompts pad at the END, interior chunks are full, a ragged
-        tail chunk is RIGHT-ALIGNED at ``plen - chunk`` (rewriting the
-        overlap with identical k/v); a tail that dips into shared blocks
-        copy-on-writes them first."""
+        """Advance up to ``chunks_per_step`` admission prefills one chunk.
+
+        KV-only archs: short prompts pad at the END, interior chunks are
+        full, a ragged tail chunk is RIGHT-ALIGNED at ``plen - chunk``
+        (rewriting the overlap with identical k/v).  Recurrent-bearing
+        archs keep every chunk on the ALIGNED ``[k·C, (k+1)·C)`` grid with
+        the final chunk end-padded and gated off by ``valid``: re-running
+        an overlap would advance the recurrence twice.  Contiguous KV
+        prefills a view of the slot's row; paged KV starts at the
+        prefix-cache hit and copy-on-writes shared blocks the tail dips
+        into."""
         C = self._chunk
         budget = self.ecfg.chunks_per_step
+        contig_kv = self.has_kv and not self.paged
         for slot in self.table.prefilling():
             if budget <= 0:
                 return
@@ -314,7 +420,14 @@ class ServeEngine:
             plen = len(prompt)
             remaining = plen - slot.prefill_pos
             chunk = np.zeros((1, C), np.int64)
-            if plen <= C:                       # whole prompt, end-padded
+            valid = None
+            if self.has_rec:                    # aligned grid, masked tail
+                start = slot.prefill_pos
+                n = min(C, remaining)
+                last_row = n - 1
+                chunk[0, :n] = prompt[start:start + n]
+                valid = n
+            elif plen <= C:                     # whole prompt, end-padded
                 start, last_row = 0, plen - 1
                 chunk[0, :plen] = prompt
             elif remaining > C:                 # full interior chunk
@@ -324,12 +437,21 @@ class ServeEngine:
                 start, last_row = plen - C, C - 1
                 chunk[0] = prompt[start:plen]
             final = remaining <= C
-            if not self._ensure_writable_range(slot, start, start + C):
-                continue                        # preempted mid-COW
-            table = self._put(self.table.block_table_row(slot))
-            logits, self.cache = T.prefill_chunk(
-                self.params, self.cfg, self._put(chunk), self.cache, start,
-                with_logits=final, block_tables=table)
+            table = None
+            if self.paged:
+                if not self._ensure_writable_range(slot, start, start + C):
+                    continue                    # preempted mid-COW
+                table = self._put(self.table.block_table_row(slot))
+            rec_row = (None if self.rec is None else
+                       self._put(np.asarray([slot.rec_row]), torch.int64))
+            sub = (T.take_state(self.cfg, self.cache, slot.index)
+                   if contig_kv else self.cache)
+            logits, sub = T.prefill_chunk(
+                self.params, self.cfg, self._put(chunk), sub, start,
+                with_logits=final, block_tables=table, rec_rows=rec_row,
+                valid=valid)
+            self.cache = (T.write_state(self.cfg, self.cache, sub,
+                                        slot.index) if contig_kv else sub)
             slot.prefill_pos += min(remaining, C)
             slot.length = slot.prefill_pos
             self.metrics.on_prefill_chunk(min(remaining, C))
@@ -338,10 +460,11 @@ class ServeEngine:
                 # prompt cached: token 0 from the REAL last prompt position
                 tok = self._sample(logits[:, last_row], [slot.req_id], [0])[0]
                 self.table.activate(slot, tok)
-                # publish the full prompt blocks (first writer wins)
-                keys = self.allocator.prefix_keys(slot.request.prompt)
-                for i, key in enumerate(keys):
-                    self.allocator.publish(slot.blocks[i], key)
+                if self.paged and not self.has_rec:
+                    # publish the full prompt blocks (first writer wins)
+                    keys = self.allocator.prefix_keys(slot.request.prompt)
+                    for i, key in enumerate(keys):
+                        self.allocator.publish(slot.blocks[i], key)
                 self.metrics.on_first_token(slot.req_id)
                 self._complete_if_done(slot, tok)
 
@@ -363,15 +486,21 @@ class ServeEngine:
         self._record_blocks()
 
     def _decode_tick(self) -> None:
-        self._grow_decode_blocks()
+        if self.paged:
+            self._grow_decode_blocks()
         if self.table.n_active == 0:
             return
         tokens, offsets, active, req_ids, tok_idx = self.table.decode_inputs()
+        bt = rows = act = None
+        if self.paged:
+            bt = self._put(self.table.block_tables())
+        if self.rec is not None:
+            rows = self._put(self.table.rec_rows(), torch.int64)
+            act = self._put(active)
         logits, self.cache = T.decode_step(
             self.params, self.cfg, self._put(tokens, torch.int64), self.cache,
-            self._put(offsets), block_tables=self._put(
-                self.table.block_tables()),
-            paged_kernel=self.paged_kernel)
+            self._put(offsets), block_tables=bt,
+            paged_kernel=self.paged_kernel, rec_rows=rows, active=act)
         rows = np.flatnonzero(active)
         toks = dict(zip(rows.tolist(), self._sample(
             logits[self._put(rows), 0], req_ids[rows], tok_idx[rows])))
@@ -385,10 +514,23 @@ class ServeEngine:
             self.metrics.on_token(slot.req_id)
             self._complete_if_done(slot, tok)
 
+    def hold_admission(self, steps: int) -> None:
+        """Stall admission for the next ``steps`` engine steps (fault
+        injection: a hung scheduler).  Live slots keep prefilling and
+        decoding; only NEW admissions wait.  Overlapping holds extend, not
+        stack."""
+        if steps < 0:
+            raise ValueError(f"hold steps must be >= 0, got {steps}")
+        self._admission_hold = max(self._admission_hold, steps)
+
+    @torch.inference_mode()
     def step(self) -> None:
         """One engine iteration: admissions, a prefill tick, a decode step,
         and a clock tick."""
-        self._admit_ready(self.metrics.now())
+        if self._admission_hold > 0:
+            self._admission_hold -= 1
+        else:
+            self._admit_ready(self.metrics.now())
         self._prefill_tick()
         self._decode_tick()
         self.metrics.on_queue_depth(len(self.queue))
@@ -411,7 +553,79 @@ class ServeEngine:
         return self.results
 
 
-def serve_waves(*args, **kwargs):
-    raise NotImplementedError(
-        "serve_waves (the wave-at-a-time oracle) is not ported yet; the "
-        "port's engine is held to the reference's paged engine instead")
+def serve_waves(cfg: ArchConfig, params, ecfg: EngineConfig,
+                requests: Sequence[Request]):
+    """Admit <= max_slots requests per wave; decode until the wave drains.
+
+    The engine's TEST ORACLE: it batch-prefills whole prompts in one call
+    over the contiguous cache (no chunking, no padding masks, no slot
+    reuse, no paging), so its per-request outputs are what the continuous
+    engine, every backend mix included, must match token for token (same
+    sampling discipline).  Prompts within a wave must share one length.
+    Returns (results, metrics)."""
+    _check_arch(cfg)
+    S, max_len = ecfg.max_slots, ecfg.max_len
+    metrics = ServeMetrics(max_slots=S, clock=ecfg.clock, step_s=ecfg.step_s)
+    results: Dict[int, List[int]] = {}
+    sample = _make_sampler(ecfg.seed, ecfg.temperature)
+    dev = params["embed"].device
+    put = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,
+                                    device=dev)
+
+    reqs = sorted(requests, key=lambda r: (r.arrival_s, r.req_id))
+    for r in reqs:
+        metrics.on_submit(r.req_id, r.arrival_s, len(r.prompt))
+    metrics.start()
+    with torch.inference_mode():
+        for w0 in range(0, len(reqs), S):
+            wave = reqs[w0:w0 + S]
+            plens = {len(r.prompt) for r in wave}
+            if len(plens) != 1:
+                raise ValueError("wave baseline needs uniform prompt "
+                                 f"lengths within a wave, got {sorted(plens)}")
+            P = plens.pop()
+            # a wave starts only once its LAST member arrived
+            metrics.wait_until(max(r.arrival_s for r in wave))
+            B = len(wave)
+            cache = T.init_cache(cfg, B, max_len, device=dev)
+            req_ids = np.asarray([r.req_id for r in wave])
+            for r in wave:
+                metrics.on_admit(r.req_id)
+            logits, cache, _ = T.prefill(
+                params, cfg, put([list(r.prompt) for r in wave]), cache)
+            metrics.on_prefill_chunk(B * P)
+            metrics.tick()
+            toks = sample(logits[:, -1], req_ids, np.zeros(B, np.int64))
+            outs = [[t] for t in toks]
+            done = np.zeros((B,), bool)
+            for i, r in enumerate(wave):
+                metrics.on_first_token(r.req_id)
+                if (ecfg.eos_id is not None and outs[i][0] == ecfg.eos_id) \
+                        or r.max_new_tokens == 1:
+                    done[i] = True
+                    metrics.on_finish(r.req_id)
+            gen = 1
+            max_gen = max(r.max_new_tokens for r in wave)
+            while not done.all() and gen < max_gen:
+                logits, cache = T.decode_step(
+                    params, cfg, put(toks)[:, None], cache, P + gen - 1)
+                toks = sample(logits[:, 0], req_ids, np.full(B, gen))
+                metrics.on_decode_step(int((~done).sum()))
+                metrics.tick()
+                for i, r in enumerate(wave):
+                    if done[i]:
+                        continue       # slot idles until the wave drains
+                    outs[i].append(toks[i])
+                    metrics.on_token(r.req_id)
+                    if (ecfg.eos_id is not None
+                            and outs[i][-1] == ecfg.eos_id) \
+                            or len(outs[i]) >= r.max_new_tokens:
+                        done[i] = True
+                        metrics.on_finish(r.req_id)
+                gen += 1
+            for i, r in enumerate(wave):
+                results[r.req_id] = outs[i]
+                if not done[i]:
+                    metrics.on_finish(r.req_id)
+    metrics.stop()
+    return results, metrics

@@ -170,7 +170,8 @@ def test_engine_token_identical_with_eos(arch):
             for i, (k, g) in enumerate(zip([5, 9, 3], [6, 7, 5]))]
     base = dict(max_slots=2, max_len=24, prefill_chunk=4,
                 chunks_per_step=2, block_size=4)
-    plain = ServeEngine(cfg, p, EngineConfig(paged_kernel="ref", **base)
+    plain = ServeEngine(cfg, p, EngineConfig(kv_mode="paged",
+                                             paged_kernel="ref", **base)
                         ).run([Request(*r) for r in spec])
     eos = rid = None
     for r, out in sorted(plain.items()):
@@ -181,7 +182,8 @@ def test_engine_token_identical_with_eos(arch):
         if eos is not None:
             break
     assert eos is not None, "no usable eos in the greedy output"
-    ours = ServeEngine(cfg, p, EngineConfig(paged_kernel="auto", eos_id=eos,
+    ours = ServeEngine(cfg, p, EngineConfig(kv_mode="paged",
+                                            paged_kernel="auto", eos_id=eos,
                                             **base))
     theirs = JServeEngine(jcfg, jp, JEngineConfig(
         kv_mode="paged", paged_kernel="ref", eos_id=eos, **base))

@@ -242,9 +242,21 @@ def test_apply_attention_no_cache_and_contiguous_guard(cfg, jcfg):
     want, _ = JL.apply_attention(p, jcfg, jnp.asarray(x),
                                  positions=jnp.asarray(pos), window=3)
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        L.apply_attention(_t(p), cfg, torch.from_numpy(x[:, :1]),
-                          positions=torch.zeros(2, 1, dtype=torch.int32),
-                          kv_cache={"k": torch.zeros(2, 8, 2, 32),
-                                    "v": torch.zeros(2, 8, 2, 32)},
-                          cache_offset=0)
+    # the contiguous cache (ported in slice 10; it raised before): one
+    # decode token per row at per-row offsets, into the reference's cache
+    kc = rng.standard_normal((2, 8, 2, 32)).astype(np.float32)
+    vc = rng.standard_normal((2, 8, 2, 32)).astype(np.float32)
+    off = np.array([3, 6], np.int32)
+    got, gkv = L.apply_attention(
+        _t(p), cfg, torch.from_numpy(x[:, :1]),
+        positions=torch.from_numpy(off[:, None]),
+        kv_cache={"k": torch.from_numpy(kc.copy()),
+                  "v": torch.from_numpy(vc.copy())},
+        cache_offset=torch.from_numpy(off))
+    want, wkv = JL.apply_attention(
+        p, jcfg, jnp.asarray(x[:, :1]), positions=jnp.asarray(off[:, None]),
+        kv_cache={"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        cache_offset=jnp.asarray(off))
+    _close(got, want)
+    _close(gkv["k"], wkv["k"])
+    _close(gkv["v"], wkv["v"])

@@ -1,6 +1,6 @@
 """Port parity: the paged serve engine end to end on the CPU.
 
-The port's ``ServeEngine`` against the reference's paged ``ServeEngine`` on
+The port's paged ``ServeEngine`` against the reference's paged ``ServeEngine`` on
 gemma2-2b-smoke with the reference's params, greedy decoding and the
 virtual step clock: outputs must be token-identical and the whole metrics
 summary (TTFTs, decode steps, preemptions, prefix hits, block gauges)
@@ -59,7 +59,8 @@ def _serve(cfgs, params, spec, port_kernel="ref", jax_kernel="ref", **kw):
     base = dict(max_slots=2, max_len=24, prefill_chunk=4, chunks_per_step=2,
                 block_size=4)
     base.update(kw)
-    ours = ServeEngine(cfg, p, EngineConfig(paged_kernel=port_kernel,
+    ours = ServeEngine(cfg, p, EngineConfig(kv_mode="paged",
+                                            paged_kernel=port_kernel,
                                             **base))
     theirs = JServeEngine(jcfg, jp, JEngineConfig(
         kv_mode="paged", paged_kernel=jax_kernel, **base))
@@ -116,7 +117,8 @@ def test_eos_stops_at_first_occurrence(cfgs, params):
     spec = _requests(512, [5, 7, 4], [8, 8, 8], seed=5)
     plain = ServeEngine(cfg, params[0], EngineConfig(
         max_slots=2, max_len=24, prefill_chunk=4, chunks_per_step=2,
-        block_size=4, paged_kernel="ref")).run([Request(*r) for r in spec])
+        kv_mode="paged", block_size=4, paged_kernel="ref")).run(
+            [Request(*r) for r in spec])
     eos = rid = None
     for r, out in sorted(plain.items()):
         for k in range(1, len(out)):
@@ -139,26 +141,31 @@ def test_sampling_independent_of_slot_count(cfgs, params):
     outs = []
     for slots in (1, 2, 4):
         eng = ServeEngine(cfg, p, EngineConfig(
-            max_slots=slots, max_len=24, prefill_chunk=4, block_size=4,
-            temperature=0.8, seed=11))
+            max_slots=slots, max_len=24, prefill_chunk=4, kv_mode="paged",
+            block_size=4, temperature=0.8, seed=11))
         outs.append(eng.run([Request(*r) for r in spec]))
     assert outs[0] == outs[1] == outs[2]
     greedy = ServeEngine(cfg, p, EngineConfig(
-        max_slots=2, max_len=24, prefill_chunk=4, block_size=4)).run(
-            [Request(*r) for r in spec])
+        max_slots=2, max_len=24, prefill_chunk=4, kv_mode="paged",
+        block_size=4)).run([Request(*r) for r in spec])
     assert outs[0] != greedy
 
 
 def test_engine_rejects_unported_modes(cfgs, params):
+    """What stays unported raises: the reference's Pallas lowering name
+    and a mesh; the wave oracle refuses the paged cache, as the
+    reference's CLI does."""
     cfg, _ = cfgs
     p, _ = params
     cli = ["--arch", ARCH, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        serve_cli.main(cli + ["--slot-state", "contiguous"])
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        serve_cli.main(cli + ["--rec-slots", "1"])
+    with pytest.raises(ValueError, match="contiguous cache only"):
+        serve_cli.main(cli + ["--mode", "wave", "--kv-mode", "paged"])
     with pytest.raises(SystemExit):
-        serve_cli.main(cli + ["--kv-mode", "contiguous"])
+        serve_cli.main(cli + ["--kv-mode", "ring"])
+    with pytest.raises(SystemExit):
+        serve_cli.main(cli + ["--paged-kernel", "pallas"])
+    with pytest.raises(ValueError, match="kv_mode"):
+        ServeEngine(cfg, p, EngineConfig(kv_mode="ring"))
     with pytest.raises(ValueError, match="paged_kernel"):
         ServeEngine(cfg, p, EngineConfig(paged_kernel="pallas"))
     with pytest.raises(NotImplementedError, match="mesh"):

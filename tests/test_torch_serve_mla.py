@@ -222,7 +222,8 @@ def test_engine_token_identical_to_reference(cfgs, params, port_kernel):
                 [5, 9, 3, 12], [6, 3, 7, 5], [0.0, 0.0, 0.01, 0.05]))]
     base = dict(max_slots=2, max_len=24, prefill_chunk=4,
                 chunks_per_step=2, block_size=4)
-    ours = ServeEngine(cfg, p, EngineConfig(paged_kernel=port_kernel,
+    ours = ServeEngine(cfg, p, EngineConfig(kv_mode="paged",
+                                            paged_kernel=port_kernel,
                                             **base))
     theirs = JServeEngine(jcfg, jp, JEngineConfig(
         kv_mode="paged", paged_kernel="ref", **base))

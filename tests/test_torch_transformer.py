@@ -59,7 +59,7 @@ def test_config_and_param_count_match_reference(name):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        R.get_config("xlstm-1.3b-smoke")
+        R.get_config("paligemma-3b-smoke")
     with pytest.raises(KeyError):
         R.get_config("nope")
 
