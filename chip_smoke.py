@@ -181,6 +181,24 @@ The quickest proof that the port starts on the card.  Phases, in order
                 contiguous (no paged-attention launch), (c) one decode
                 step paged vs contiguous within ``JAMBA_LOGIT_ATOL``, and
                 the profiled step's idle share and expert share;
+  slice 11 (training the MTP, MoE and recurrent models; every train
+  phase, 5-5e too, now checkpoints each scanned unit, as the reference):
+  5f. xlstm   — ``launch.train.run`` on xlstm-1.3b at published widths
+                with ONE cut, 48 -> 8 layers (``XLSTM_TRAIN_CUT``), world
+                4, all auto, 4 x 512 tokens (two 256-step time chunks a
+                scan), 2 steps: finite losses, B1/B2 launches = steps x
+                buckets with the codec x 2, the plan, step time,
+                tokens/s, peak memory, the last step's idle share (NVML
+                utilization), every codec'd bucket's real gradients
+                through B2 and its plain version bit for bit;
+  5g. jamba   — one bf16 and one f32 ``loss_fn`` + ``autograd.grad`` of
+                Jamba's first two layers (``JAMBA_GRAD_CUT``) on 2 x 512
+                tokens: loss, metrics and each leaf's cosine and relative
+                difference within ``JAMBA_GRAD_BOUNDS``, experts no token
+                picked with zero gradients, the loss the sum of its terms;
+  5h. mtp     — the same for DeepSeek-V3 with one MLA layer and its MTP
+                module (``DS_GRAD_CUT``, ``DS_GRAD_BOUNDS``): ``loss ==
+                xent + 0.3 mtp + 0.01 aux`` to f32 rounding;
   9. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -198,6 +216,11 @@ run on one card (parent, change, change, parent).
 
 does the same for the tree sums: B3 (f32 rows, bf16 rows into f32) and
 B4 at 8 rows of a 256 MB bucket beside ``torch.sum`` and the bound.
+
+    python3 chip_smoke.py --remat-timings src
+
+runs the train runs of phases 5b and 5d with the training remat off and
+on (none, block, block, none) and prints each run's step time and peak.
 """
 
 import gc
@@ -464,6 +487,49 @@ JAMBA_CONTIG_ARGS = ["--arch", "jamba-v0.1-52b"] + CONTIG_SERVE_ARGS[2:]
 # magnitude ~4 (an untied head of scale 1/sqrt(4096) against an RMS-normed
 # state)
 JAMBA_LOGIT_ATOL = 0.75
+
+# Slice 11: training the MTP, MoE and recurrent models.  [5f] xlstm-1.3b
+# BSP training at published widths with ONE cut, 48 -> 8 layers: one
+# whole unit of 7 mLSTM + 1 sLSTM, 508,500,024 params, 21.4 GB at the
+# train phase's 42 B per parameter (all 48 layers would be 84.9 GB).
+# World 4, every choice left to the autotuner, 4 x 512 tokens: one row a
+# rank, so every 512-step scan takes the reference's two-chunk path
+# (``ssm.TIME_CHUNK`` 256); 2 steps.  The eager scan is launch-bound
+# (phase 3x), so the rows are short and the steps few.
+XLSTM_TRAIN_CUT = dict(num_layers=8, layer_pattern=("mlstm",) * 7
+                       + ("slstm",))
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-1.3b", "--device", "cuda", "--devices",
+                    "4", "--steps", "2", "--batch", "4", "--seq", "512",
+                    "--lr", "3e-4", "--seed", "0"] + TRAIN_AUTO
+# the real-bucket check's gradients come from 64-token rows: the bucket
+# layout is the run's, and a 512-token gradient pass of the eager scan
+# takes a step's minute (an H100 80GB HBM3 at 700 W read 67-73 s a step)
+XLSTM_CHECK_SEQ = 64
+# [5g] Jamba's first two layers (mamba, mamba_moe) at published widths,
+# 3,742,306,304 params, and [5h] DeepSeek-V3 with one dense MLA layer and
+# its MTP module, 3,123,099,648 params: a MoE or MTP backward cannot train
+# at world 4 on one card (one Jamba mamba_moe layer with its mamba partner
+# is 157 GB at 42 B a parameter), so each is held by one gradient: a
+# ``loss_fn`` + ``autograd.grad`` in bf16, then on the same params cast to
+# f32, on the same 2 x 512 tokens.
+JAMBA_GRAD_CUT = dict(num_layers=2, layer_pattern=("mamba", "mamba_moe"))
+DS_GRAD_CUT = dict(num_layers=1, layer_pattern=("mla",))
+GRAD_BATCH, GRAD_SEQ = 2, 512
+# bf16 vs f32 (``compare_grads``): loss and metrics within "loss"; per
+# gradient leaf a cosine similarity of at least "cos" and a difference of
+# at most "rel" of the f32 gradient's norm (with equal norms, cos = 1 -
+# rel^2 / 2).  Set from a first run on an H100 80GB HBM3 at 700 W.  Jamba:
+# every bf16 activation rounds to 2^-9 and the mamba layers carry it
+# through 512 steps of the scan; the router's top-2 picks near a tie and
+# the bf16 index_add_ atomics of the combine (layers.apply_moe) move the
+# expert and router gradients further.  The first run read the loss
+# 6.8e-4 apart, the mamba leaves 0.087-0.140, the experts 0.10-0.145 and
+# the router 0.200 (cos 0.980): rel 0.35 (cos 0.93) leaves 1.75x.
+# DeepSeek's cut has no MoE layer: MLA, a dense MLP and the MTP block
+# read 0.0057-0.0169 (cos >= 0.99986) and the loss 1.0e-3 apart: rel 0.05
+# (cos 0.998), 3x.
+JAMBA_GRAD_BOUNDS = dict(loss=5e-3, cos=0.93, rel=0.35)
+DS_GRAD_BOUNDS = dict(loss=5e-3, cos=0.998, rel=0.05)
 
 
 def _smi() -> str:
@@ -2863,7 +2929,7 @@ def real_bucket_check(torch, cfg, tref, codecs, engine, params, batch, dev,
     from repro_torch.models import transformer as T
     from repro_torch.weights import reference_leaves
     leaves = reference_leaves(params, cfg)
-    flat = [t for leaf in leaves for t in leaf.parts]
+    flat = [t.requires_grad_(True) for leaf in leaves for t in leaf.parts]
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     world = engine.world
     buckets = {b.index: b for b, _ in pairs}
@@ -3038,6 +3104,34 @@ def phase_schedules(torch, dev):
     return timings
 
 
+def _counted_run(torch, tops, cfg, args, label):
+    """``launch.train.run(cfg, args)`` with the decode-add counts set to 0
+    just before and read just after; the losses must be finite.  Prints
+    the plan.  Returns ``(out, counts, want, peak)``: ``want`` is each
+    codec's steps x (buckets with the codec) x log2(world)."""
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+    out = train_cli.run(cfg, args)
+    counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    eng = out["engine"]
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != args.steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    hops = args.devices.bit_length() - 1
+    want = {c: args.steps * eng.codec_names.count(c) * hops
+            for c in ("bf16", "int8")}
+    print(f"  plan: {eng.n_buckets} buckets, "
+          f"{[b.length for b in eng.buckets]} f32 elements; "
+          + ", ".join(f"b{b.index} {s}+{c}" for b, s, c in
+                      zip(eng.buckets, eng.schedules, eng.codec_names)))
+    return out, counts, want, peak
+
+
 def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss,
                      argv=None):
     """The slice's main path: ``launch.train.run`` with ``TRAIN_AUTO``
@@ -3052,7 +3146,6 @@ def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss,
     the auto path gives B1/B2 is checked.  ``argv`` is the whole command
     line (default: ``TRAIN_ARGS`` + ``TRAIN_AUTO``; phase 5d gives
     ``QWEN_TRAIN_ARGS``).  Returns the launch counts."""
-    import numpy as np
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as T
@@ -3063,27 +3156,14 @@ def phase_train_auto(torch, tops, tref, codecs, cfg, first_loss,
     print(f"  {cfg.name} at published widths, cut to {cfg.num_layers} "
           f"layers; world {args.devices}; batch {args.batch} x {args.seq}; "
           f"{' '.join(TRAIN_AUTO)}")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
-    out = train_cli.run(cfg, args)
-    counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    out, counts, want, peak = _counted_run(torch, tops, cfg, args, "auto")
     eng = out["engine"]
     hist = out["history"]
     losses = [h["loss"] for h in hist]
-    if len(losses) != args.steps or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"auto: losses {losses}")
     if first_loss is not None and losses[0] != first_loss:
         raise AssertionError(f"auto: step-0 loss {losses[0]!r}, the fixed "
                              f"run's {first_loss!r}")
     hops = args.devices.bit_length() - 1
-    want = {c: args.steps * eng.codec_names.count(c) * hops
-            for c in ("bf16", "int8")}
-    print(f"  plan: {eng.n_buckets} buckets, "
-          f"{[b.length for b in eng.buckets]} f32 elements; "
-          + ", ".join(f"b{b.index} {s}+{c}" for b, s, c in
-                      zip(eng.buckets, eng.schedules, eng.codec_names)))
     if counts != want or not any(want.values()):
         raise AssertionError(
             f"auto: launches {counts}, want {want} (= {args.steps} steps x "
@@ -3385,6 +3465,318 @@ def phase_train_soak(torch, cfg, dev, scfg=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 11: training the MTP, MoE and recurrent models
+# ---------------------------------------------------------------------------
+
+
+def cut_config(name, cut):
+    """``name`` at its published widths, cut in depth to ``cut``."""
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config(name), **cut)
+
+
+class _Utilization:
+    """NVML's ``utilization.gpu`` (the share of each sample period in which
+    a kernel ran on the card) read by ``nvidia-smi -lms`` every
+    ``period_ms``, each reading stamped on the host clock as it arrives.
+    A step of the eager scan launches millions of kernels, too many for
+    ``torch.profiler``; this reads the idle share without tracing them."""
+
+    def __init__(self, period_ms=100):
+        self.period_ms = period_ms
+        self.samples = []
+
+    def __enter__(self):
+        import threading
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-i", "0",
+             "-lms", str(self.period_ms)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    self.samples.append((time.perf_counter(),
+                                         float(line.strip())))
+                except ValueError:
+                    pass
+
+        self.thread = threading.Thread(target=read, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.thread.join(timeout=10)
+
+    def busy(self, t0, t1):
+        """(mean utilization in [t0, t1] as a fraction, readings)."""
+        vals = [v for t, v in self.samples if t0 <= t <= t1]
+        return (sum(vals) / len(vals) / 100 if vals else None), len(vals)
+
+
+def phase_train_xlstm(torch, tops, tref, codecs, cfg, argv=None):
+    """[5f] the slice's main path: ``launch.train.run`` on ``cfg``
+    (xlstm-1.3b cut to ``XLSTM_TRAIN_CUT``) with ``argv`` (default
+    ``XLSTM_TRAIN_ARGS``: world 4, all auto), its counts set to 0 just
+    before and read just after.  Losses finite; each codec's count equal
+    to steps x (buckets with that codec) x log2(world); if the plan puts
+    no bucket on int8, one more step with ``--bucket-codec int8`` so that
+    B2 runs on this path.  Prints the plan, step time, tokens/s, peak
+    memory and the last step's idle share (NVML utilization, read during
+    the run); then every codec'd bucket's real gradients (of
+    ``XLSTM_CHECK_SEQ``-token rows) through B2 and through its plain
+    version, bit for bit.  Returns the launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_params
+    argv = list(argv or XLSTM_TRAIN_ARGS)
+    args = train_cli.parse_args(argv)
+    dev = torch.device(args.device)
+    n = count_params(cfg)
+    chunks = args.seq // S.TIME_CHUNK if args.seq > S.TIME_CHUNK and \
+        args.seq % S.TIME_CHUNK == 0 else 1
+    card = f"({_smi()}) " if dev.type == "cuda" else ""
+    print(f"  {card}{cfg.name} at published widths, cut to "
+          f"{cfg.num_layers} layers ({n:,} params, {42 * n / 1e9:.1f} GB at "
+          f"42 B a parameter); world {args.devices}; batch {args.batch} x "
+          f"{args.seq} ({chunks} time chunk(s) a scan, remat "
+          f"{T._REMAT!r}); {' '.join(TRAIN_AUTO)}")
+    util = _Utilization() if dev.type == "cuda" else None
+    if util:
+        with util:
+            out, counts, want, peak = _counted_run(torch, tops, cfg, args,
+                                                   "xlstm train")
+            t_end = time.perf_counter()
+    else:
+        out, counts, want, peak = _counted_run(torch, tops, cfg, args,
+                                               "xlstm train")
+    eng, hist = out["engine"], out["history"]
+    hops = args.devices.bit_length() - 1
+    if counts != want:
+        raise AssertionError(
+            f"xlstm train: launches {counts}, want {want} (= {args.steps} "
+            f"steps x buckets with the codec x log2({args.devices}))")
+    tokens = args.batch * args.seq
+    for h in hist:
+        print(f"  xlstm step {h['step']}: loss {h['loss']:.4f} (xent "
+              f"{h['xent']:.4f}, aux {h['aux']:.1f}), {h['sec']:.3f} s, "
+              f"{tokens / h['sec']:.1f} tokens/s")
+    idle = ""
+    if util:
+        busy, k = util.busy(t_end - hist[-1]["sec"], t_end)
+        idle = ("; last step's idle share not measured (no NVML reading)"
+                if busy is None else
+                f"; the card idles {(1 - busy) * 100:.1f}% of the last step "
+                f"(NVML utilization.gpu, {k} readings every "
+                f"{util.period_ms} ms)")
+    print(f"  xlstm: launches {counts} = {args.steps} steps x buckets with "
+          f"each codec x {hops} hops; peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.1f} GB){idle}")
+    del out
+    if not want["int8"]:
+        fixed = train_cli.parse_args(argv + ["--steps", "1", "--bucket-codec",
+                                             "int8"])
+        tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+        eng1 = train_cli.run(cfg, fixed)["engine"]
+        n1 = eng1.codec_names.count("int8") * hops
+        print(f"  fixed --bucket-codec int8 step: {tops.INT8_LAUNCHES} "
+              f"decode_add_int8 launches (want {n1})")
+        if tops.INT8_LAUNCHES != n1 or n1 == 0:
+            raise AssertionError(f"xlstm int8 step: {tops.INT8_LAUNCHES} "
+                                 f"launches, want {n1}")
+        counts["int8"] += tops.INT8_LAUNCHES
+        eng = eng1
+    data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                       seq_len=min(args.seq, XLSTM_CHECK_SEQ),
+                                       seed=args.seed))
+    print(f"  real buckets: gradients of {args.batch} x "
+          f"{data.dcfg.seq_len} tokens")
+    real_bucket_check(torch, cfg, tref, codecs, eng,
+                      T.init_params(cfg, args.seed, device=dev),
+                      data.batch(args.steps), dev,
+                      [(b, c) for b, c in zip(eng.buckets, eng.codec_names)
+                       if c != "none"])
+    return counts
+
+
+def _chunked_dots(torch, a, b, chunk=1 << 26):
+    """(a.b, a.a, b.b, (a-b).(a-b)) of two flat tensors in f64, a chunk at
+    a time (an expert leaf holds 940 M elements)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    acc = torch.zeros(4, dtype=torch.float64, device=a.device)
+    for i in range(0, a.numel(), chunk):
+        x = a[i:i + chunk].double()
+        y = b[i:i + chunk].double()
+        acc += torch.stack([(x * y).sum(), (x * x).sum(), (y * y).sum(),
+                            ((x - y) ** 2).sum()])
+    return acc.tolist()
+
+
+def _grad_pass(torch, cfg, params, batch):
+    """One ``loss_fn`` + ``autograd.grad`` of ``cfg`` on ``params``.
+    Returns (loss, metrics, [(name, grad)], empty): ``empty`` counts the
+    experts no token picked in the forward that made the loss (the first
+    router call of each MoE layer), each of whose expert weights must
+    have an all-zero gradient (checked here)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import reference_leaves
+    leaves = reference_leaves(params, cfg)
+    flat = [t.requires_grad_(True) for leaf in leaves for t in leaf.parts]
+    picks = []
+    real = L._router_gates
+
+    def recording(p, mo, x2d):
+        out = real(p, mo, x2d)
+        picks.append(torch.bincount(out[1].reshape(-1),
+                                    minlength=mo.num_experts))
+        return out
+
+    L._router_gates = recording
+    try:
+        loss, metrics = T.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        L._router_gates = real
+    by_id = {id(t): g for t, g in zip(flat, grads)}
+    moe = [i for i, k in enumerate(cfg.layer_pattern) if k in T.MOE_KINDS]
+    empty = 0
+    for li, count in zip(moe, picks):
+        ffn = params["layers"][li]["ffn"]
+        for e in torch.nonzero(count == 0).reshape(-1).tolist():
+            empty += 1
+            for w in ("w_gate", "w_up", "w_down"):
+                if by_id[id(ffn[w])][e].any():
+                    raise AssertionError(f"layer {li} expert {e}: no token, "
+                                         f"but a nonzero {w} gradient")
+    names = []
+    for leaf in leaves:
+        names += [leaf.path if len(leaf.parts) == 1 else f"{leaf.path}[{r}]"
+                  for r in range(len(leaf.parts))]
+    out = (loss.item(), {k: v.item() for k, v in metrics.items()},
+           list(zip(names, [g.detach() for g in grads])), empty)
+    for t in flat:
+        t.requires_grad_(False)
+    return out
+
+
+def check_loss_terms(cfg, loss, m, label):
+    """loss == xent + mtp_loss_weight * mtp / mtp_depth + 0.01 * aux, to
+    f32 rounding (five roundings at most, each half an ulp of a partial
+    sum no larger than the terms' sum; four times that)."""
+    terms = [m["xent"]]
+    if cfg.mtp_depth:
+        terms.append(cfg.mtp_loss_weight * m["mtp"] / cfg.mtp_depth)
+    if cfg.moe:
+        terms.append(0.01 * m["aux"])
+    want = sum(terms)
+    tol = 4 * 5 * 2.0 ** -24 * sum(abs(t) for t in terms)
+    if not all(math.isfinite(v) for v in m.values()) or \
+            abs(loss - want) > tol:
+        raise AssertionError(f"{label}: loss {loss!r} != the sum of its "
+                             f"terms {want!r} (tol {tol:.2e}; {m})")
+    return abs(loss - want)
+
+
+def compare_grads(torch, lo, hi, bounds, label):
+    """Hold the low-precision pass ``lo`` to the f32 pass ``hi`` (each a
+    ``_grad_pass`` result): loss and every metric within
+    ``bounds["loss"]``, and per gradient leaf the cosine similarity at
+    least ``bounds["cos"]`` and the norm of the difference at most
+    ``bounds["rel"]`` of the f32 gradient's.  Prints each leaf and raises
+    past a bound.  Returns (worst cos, worst rel)."""
+    (l0, m0, g0, _), (l1, m1, g1, _) = lo, hi
+    bad = []
+    for k, a, b in [("loss", l0, l1)] + [(k, m0[k], m1[k]) for k in m1]:
+        print(f"  {label} {k}: {a:.6f} (bf16) vs {b:.6f} (f32), |diff| "
+              f"{abs(a - b):.3e}")
+        if not abs(a - b) <= bounds["loss"]:
+            bad.append(f"{k} {a} vs {b}")
+    worst_cos, worst_rel = 1.0, 0.0
+    for (name, a), (_, b) in zip(g0, g1):
+        dot, na, nb, nd = _chunked_dots(torch, a, b)
+        if nb == 0:
+            cos, rel = (1.0, 0.0) if na == 0 else (0.0, math.inf)
+        else:
+            cos = dot / math.sqrt(na * nb) if na else 0.0
+            rel = math.sqrt(nd / nb)
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+        print(f"  {label} grad {name} {list(a.shape)}: cos {cos:.6f}, "
+              f"|bf16 - f32| / |f32| {rel:.3e}, |f32| {math.sqrt(nb):.3e}")
+        if not (cos >= bounds["cos"] and rel <= bounds["rel"]):
+            bad.append(f"{name}: cos {cos}, rel {rel}")
+    print(f"  {label}: worst cos {worst_cos:.6f} (bound {bounds['cos']}), "
+          f"worst relative difference {worst_rel:.3e} (bound "
+          f"{bounds['rel']})")
+    if bad:
+        raise AssertionError(f"{label}: bf16 vs f32 past the bounds: "
+                             + "; ".join(bad[:8]))
+    return worst_cos, worst_rel
+
+
+def phase_grads(torch, cfg, dev, bounds, label):
+    """[5g]/[5h]: one ``loss_fn`` + ``autograd.grad`` of ``cfg`` (its
+    model dtype, bf16 at published widths) on random params from seed 0
+    and ``GRAD_BATCH`` x ``GRAD_SEQ`` tokens, then the same params cast
+    to f32 (``param_dtype="float32"``; the low-precision params freed
+    first) on the same batch; ``compare_grads`` holds one to the other
+    and ``check_loss_terms`` each pass's loss to its terms.  Experts no
+    token picked must have zero gradients in both passes."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_params
+    from repro_torch.runtime.trainer import _map_tensors
+    n = count_params(cfg)
+    card = f"({_smi()}) " if dev.type == "cuda" else ""
+    print(f"  {card}{cfg.name} at published widths, cut to "
+          f"{cfg.num_layers} layer(s) {list(cfg.layer_pattern)}"
+          + (f" + {cfg.mtp_depth} MTP module" if cfg.mtp_depth else "")
+          + f": {n:,} params; {GRAD_BATCH} x {GRAD_SEQ} tokens")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg, DataConfig(global_batch=GRAD_BATCH, seq_len=GRAD_SEQ,
+                        seed=0)).batch(0).items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, 0, device=dev)
+    t0 = time.perf_counter()
+    lo = _grad_pass(torch, cfg, params, batch)
+    _sync(torch, dev)
+    t_lo = time.perf_counter() - t0
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params = _map_tensors(params, lambda t: t.float())
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hi = _grad_pass(torch, cfg32, params, batch)
+    _sync(torch, dev)
+    t_hi = time.perf_counter() - t0
+    del params
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    for name, (loss, m, _, empty) in (("bf16", lo), ("f32", hi)):
+        err = check_loss_terms(cfg, loss, m, f"{label} {name}")
+        print(f"  {label} {name} pass: loss {loss:.6f} = "
+              + " + ".join(f"{k} {v:.6f}" for k, v in m.items())
+              + f" terms (|loss - their sum| {err:.2e}); experts with no "
+              f"token: {empty}, each with zero gradients")
+    worst = compare_grads(torch, lo, hi, bounds, label)
+    print(f"  {label}: bf16 pass {t_lo:.2f} s, f32 pass {t_hi:.2f} s; peak "
+          f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
+    return worst
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel instantiation from ``-Xptxas -v``
     output: template arguments, registers, stack and spills."""
@@ -3474,8 +3866,51 @@ def tree_timings(torch) -> int:
     return 0
 
 
+def remat_timings(torch) -> int:
+    """``--remat-timings SRC``: the train runs of phases 5b and 5d
+    (gemma2-2b at 8 layers and qwen2.5-3b at 10, world 4, all auto, 3
+    steps) with the training remat off (``set_remat("none")``: every
+    activation kept, the port before slice 11) and on (``"block"``, the
+    reference's default), in the order none, block, block, none; prints
+    steps 1-2's host time and each run's peak memory."""
+    import statistics
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    build.build(["tree_reduce"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)    # the allocator's stats need a live device
+    res = []
+    runs = (("gemma2-2b", train_config(), TRAIN_ARGS + TRAIN_AUTO),
+            ("qwen2.5-3b", qwen_config(QWEN_TRAIN_CUT), QWEN_TRAIN_ARGS))
+    try:
+        for name, cfg, argv in runs:
+            for mode in ("none", "block", "block", "none"):
+                T.set_remat(mode)
+                torch.cuda.reset_peak_memory_stats(dev)
+                out = train_cli.run(cfg, train_cli.parse_args(argv))
+                secs = [h["sec"] for h in out["history"][1:]]
+                peak = torch.cuda.max_memory_allocated(dev)
+                row = dict(arch=name, layers=cfg.num_layers, remat=mode,
+                           step_s=secs, mean_s=statistics.mean(secs),
+                           peak_gib=peak / 2**30)
+                print(f"  {name} ({cfg.num_layers} layers), remat {mode!r}: "
+                      f"steps 1-2 {secs} s, peak {peak / 2**30:.2f} GiB")
+                res.append(row)
+                del out
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        T.set_remat("block")
+    print(json.dumps({"remat_timings": res}))
+    print(_smi())
+    return 0
+
+
 TIMINGS = {"--decode-timings": decode_timings,
-           "--tree-timings": tree_timings}
+           "--tree-timings": tree_timings,
+           "--remat-timings": remat_timings}
 
 
 def main(argv=None) -> int:
@@ -3505,7 +3940,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = _smi()
     print(f"[1] build  (card: {smi})", flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = build.build()
     print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name in libs:
@@ -3654,6 +4089,28 @@ def main(argv=None) -> int:
     print(f"[5e] the fault-injected train soak on qwen2.5-3b "
           f"({soak_cfg.num_layers} of 36 layers)", flush=True)
     phase_train_soak(torch, soak_cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xl8 = cut_config("xlstm-1.3b", XLSTM_TRAIN_CUT)
+    print(f"[5f] train xlstm-1.3b ({xl8.num_layers} of 48 layers) at world "
+          "4, every choice left to the autotuner", flush=True)
+    t0 = time.perf_counter()
+    xlstm_launches = phase_train_xlstm(torch, tops, tref, codecs, xl8)
+    print(f"  phase 5f: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, name, cut, bounds in (
+            ("5g", "jamba-v0.1-52b", JAMBA_GRAD_CUT, JAMBA_GRAD_BOUNDS),
+            ("5h", "deepseek-v3-671b", DS_GRAD_CUT, DS_GRAD_BOUNDS)):
+        gcfg = cut_config(name, cut)
+        print(f"[{tag}] {name} gradients at published widths "
+              f"({gcfg.num_layers} layer(s)): bf16 vs f32", flush=True)
+        t0 = time.perf_counter()
+        phase_grads(torch, gcfg, dev, bounds, tag)
+        print(f"  phase {tag}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the gemma phases' params, caches and train state are gone; hand their
     # cached blocks back before DeepSeek's 54.6 GB of weights
@@ -3708,6 +4165,7 @@ def main(argv=None) -> int:
             replaces=f"{tr}:{line}", launches=train_launches[codec],
             auto_launches=auto_launches[codec],
             qwen_auto_launches=qwen_launches[codec],
+            xlstm_launches=xlstm_launches[codec],
             max_abs_err=codec_err[codec], elements=hop,
             **codec_timing[codec]))
     kernels.append(dict(
@@ -3750,6 +4208,8 @@ def main(argv=None) -> int:
         no_softcap={k: flash_timing[1][k] for k in
                     ("ms", "plain_ms", "library_ms", "bound_ms")},
         local_8192=flash_timing[2]))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,7 @@ class SyntheticLM:
         if cfg.frontend:
             raise NotImplementedError(
                 f"{cfg.name}: frontend batches come with the frontend "
-                "architectures (port slice 3)")
+                "architectures, not ported yet (ROADMAP A11)")
         self.cfg = cfg
         self.dcfg = dcfg
         self.local_batch = dcfg.global_batch // dcfg.num_hosts

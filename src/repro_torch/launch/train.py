@@ -3,9 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b-smoke \
       --device cpu --steps 8 --batch 4 --seq 64 --schedule auto --devices 4
 
-Port of ``repro.launch.train`` with the same flags, plus ``--device``
-(default ``cuda``; a CUDA request without CUDA raises).  ``--devices N`` is
-the BSP world, held as N ranks stacked on the one device (default 1).
+Every architecture the port serves trains here (the MTP, MoE and
+recurrent ones since slice 11; the log line prints their ``xent``,
+``aux`` and ``mtp``).  Port of ``repro.launch.train`` with the same
+flags, plus ``--device`` (default ``cuda``; a CUDA request without CUDA
+raises).  ``--devices N`` is the BSP world, held as N ranks stacked on
+the one device (default 1).
 Gradients are bucketed (``--bucket-mb``, or ``auto`` for the DP boundary
 search), reduce-scattered with the bucket's schedule (``--schedule``:
 fractal, ring, xy, naive, hierarchical, tree, or ``auto`` for the

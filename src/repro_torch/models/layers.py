@@ -10,8 +10,8 @@ reference so the parity tests compare like with like:
   * softmax and normalisers run in f32, activations in the param dtype;
   * attention is GQA-grouped (KV heads are never replicated in memory).
 
-Ported: what serving (slices 1, 3 and 10) and training (slice 2)
-reach: the attention core, unchunked and with checkpointed query blocks
+Ported: what serving (slices 1, 3 and 10) and training (slices 2 and
+11) reach: the attention core, unchunked and with checkpointed query blocks
 (``chunk_q``, training lengths), the paged KV primitives and the
 contiguous cache write (``_cache_update``), GQA attention with rope or
 no positional encoding, MLA (multi-head latent attention with the
@@ -664,6 +664,10 @@ def apply_moe(p, cfg: ArchConfig, x):
       4. the gate-weighted scatter-add back; tokens past an expert's
          capacity drop (GShard).  Then the shared expert.
 
+    The backward (training, slice 11) is autograd's through these ops:
+    the gates' gradients follow ``torch.topk``'s values, a dropped pick
+    (weight 0) gives its expert nothing, and an expert no token reaches
+    computes on zero rows, so its weights get zero gradients, as JAX's.
     The reference's ``moe_buf`` sharding hint has no counterpart on one
     device.  On CUDA the combine's ``index_add_`` uses atomics, so its
     bf16 sums may round differently from run to run."""

@@ -4,9 +4,10 @@ Mirrors ``repro/models/registry.py``.  The port carries gemma2-2b (slices
 1 and 2), deepseek-v3-671b (slice 3: MLA, MoE, MTP params), the four
 attention configs of slice 9 (qwen2.5-3b, phi4-mini-3.8b, granite-34b,
 qwen3-moe-235b-a22b) and the recurrent and hybrid configs of slice 10
-(xlstm-1.3b, jamba-v0.1-52b; served only); the two frontend ids of the
-reference are known here and raise ``NotImplementedError`` until the
-slice that ports frontends lands.
+(xlstm-1.3b, jamba-v0.1-52b); each serves and trains (the MTP, MoE and
+recurrent ones since slice 11).  The two frontend ids of the reference
+are known here and raise ``NotImplementedError`` until the slice that
+ports frontends lands (ROADMAP A11).
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ All three expose (init, forward, step):
     Returns the final recurrent state as the decode cache.
   * ``step``    — single-token decode: an O(1) state update, no KV cache.
 
+While gradients flow, the time loop keeps memory as the reference's
+``chunked_scan`` does (``_scan``): when T > ``TIME_CHUNK`` and T is a
+multiple of it, each chunk of ``TIME_CHUNK`` steps runs under
+``torch.utils.checkpoint``, so the backward keeps only the chunk-boundary
+carries and recomputes one chunk's steps at a time; otherwise one plain
+loop, as the reference's plain ``lax.scan``.
+
 ``update_mask`` [B,T] (a PREFIX mask) gates the state advance per row:
 row b advances over its first ``mask[b].sum()`` tokens only, and a row
 gated off keeps its incoming state bit for bit (``_gate_carry``).  That is
@@ -18,9 +25,7 @@ Numerics follow the reference: ``A_log``, ``D`` and every recurrent state
 (``h``, ``C``, ``n``, ``m``, ``c``) are f32, the conv state stays in the
 model dtype; softplus is ``jax.nn.softplus`` (``log1p(exp(-|x|)) +
 max(x, 0)``, not torch's thresholded one); the sLSTM's FFN uses the tanh
-GELU.  The reference's ``chunked_scan`` (time chunks under
-``jax.checkpoint``) only bounds the memory of a backward pass, which
-serving never runs: here the loop runs over every step.
+GELU.
 
 Shapes follow the papers: Mamba [arXiv:2312.00752] selective SSM with
 d_inner = expand·d_model, depthwise causal conv (d_conv), Δ/B/C
@@ -35,6 +40,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from .layers import _dtype, _init_dense, _normal, dense, init_rmsnorm, \
@@ -89,6 +95,35 @@ def _softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, without torch's linear
     threshold."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+TIME_CHUNK = 256
+
+
+def _scan(step, carry, T):
+    """``step(t, carry) -> (carry, y_t)`` over t = 0..T-1, with ``carry`` a
+    tuple of tensors; returns ``(carry, ys [B,T,...])``.  The reference's
+    ``chunked_scan``: chunked BPTT when T > ``TIME_CHUNK`` and T is a
+    multiple of it (and gradients flow), else one plain loop.  The steps
+    run in the same order either way, so the values are the same bits."""
+    chunk = TIME_CHUNK
+
+    def run(lo, hi, *carry):
+        ys = []
+        for t in range(lo, hi):
+            carry, y = step(t, carry)
+            ys.append(y)
+        return (*carry, torch.stack(ys, dim=1))
+
+    if not torch.is_grad_enabled() or T <= chunk or T % chunk:
+        *carry, ys = run(0, T, *carry)
+        return tuple(carry), ys
+    parts = []
+    for lo in range(0, T, chunk):
+        *carry, ys = checkpoint(run, lo, lo + chunk, *carry,
+                                use_reentrant=False)
+        parts.append(ys)
+    return tuple(carry), torch.cat(parts, dim=1)
 
 
 def _conv_weight(d_conv, d, *, dtype, device, generator):
@@ -158,13 +193,16 @@ def mamba_forward(p, cfg: ArchConfig, u, state=None, update_mask=None):
                      device=u.device) if state is None else state["h"])
     dA = torch.exp(dt_full[..., None] * A[None, None])       # [B,T,d_in,N]
     dBx = dt_full[..., None] * Bc[:, :, None, :] * x32[..., None]
-    ys = []
-    for t in range(T):
-        h_new, y = _mamba_scan_step(dA[:, t], dBx[:, t], Cc[:, t], h)
-        h = h_new if update_mask is None else \
-            _gate_carry(update_mask[:, t], (h_new,), (h,))[0]
-        ys.append(y)
-    y = torch.stack(ys, dim=1) + x32 * p["D"][None, None, :]
+
+    def step(t, carry):
+        h_new, y = _mamba_scan_step(dA[:, t], dBx[:, t], Cc[:, t], carry[0])
+        new = (h_new,)
+        if update_mask is not None:
+            new = _gate_carry(update_mask[:, t], new, carry)
+        return new, y
+
+    (h,), ys = _scan(step, (h,), T)
+    y = ys + x32 * p["D"][None, None, :]
     y = y.to(u.dtype) * F.silu(z)
     out = dense(p["out_proj"], y)
     return out, {"conv": new_conv, "h": h}
@@ -252,15 +290,16 @@ def mlstm_forward(p, cfg: ArchConfig, u, state=None, update_mask=None):
                  torch.zeros((B, NH), **f32))
     else:
         carry = (state["C"], state["n"], state["m"])
-    hs = []
-    for t in range(T):
+
+    def step(t, carry):
         new, h = _mlstm_cell_step(q[:, t], k[:, t], v[:, t], i_pre[:, t],
                                   log_f[:, t], carry)
-        carry = new if update_mask is None else \
-            _gate_carry(update_mask[:, t], new, carry)
-        hs.append(h)
-    C, n, m = carry
-    h = torch.stack(hs, dim=1).reshape(B, T, d_in).to(u.dtype)
+        if update_mask is not None:
+            new = _gate_carry(update_mask[:, t], new, carry)
+        return new, h
+
+    (C, n, m), hs = _scan(step, carry, T)
+    h = hs.reshape(B, T, d_in).to(u.dtype)
     h = rms_norm(p["out_norm"], h, cfg.norm_eps) + p["skip"] * xc
     h = h * F.silu(z)
     out = u + dense(p["down_proj"], h)
@@ -331,14 +370,15 @@ def slstm_forward(p, cfg: ArchConfig, u, state=None, update_mask=None):
         carry = (zeros, zeros, zeros, zeros)
     else:
         carry = (state["c"], state["n"], state["h"], state["m"])
-    hs = []
-    for t in range(T):
+
+    def step(t, carry):
         new, h = _slstm_cell_step(r32, cfg.ssm.num_heads, wx[:, t], carry)
-        carry = new if update_mask is None else \
-            _gate_carry(update_mask[:, t], new, carry)
-        hs.append(h)
-    c, n, h, m = carry
-    y = torch.stack(hs, dim=1).to(u.dtype)
+        if update_mask is not None:
+            new = _gate_carry(update_mask[:, t], new, carry)
+        return new, h
+
+    (c, n, h, m), hs = _scan(step, carry, T)
+    y = hs.to(u.dtype)
     y = rms_norm(p["group_norm"], y, cfg.norm_eps)
     u = u + y
     # gated FFN (projection factor 4/3, paper App. figure)

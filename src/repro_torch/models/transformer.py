@@ -8,11 +8,13 @@ layout.
 
 API (dense GQA models: slice 1 paged serving, slice 2 training; MLA and
 MoE models, DeepSeek-V3: slice 3 paged serving; the contiguous cache,
-recurrent (mamba, mLSTM, sLSTM) and hybrid stacks: slice 10 serving):
+recurrent (mamba, mLSTM, sLSTM) and hybrid stacks: slice 10 serving;
+training the MTP, MoE and recurrent models: slice 11):
 
   init_params(cfg, seed=0, device=...)          -> params
   forward(params, cfg, tokens)                  -> logits [B,T,V]
   loss_fn(params, cfg, batch)                   -> (loss, metrics)
+  set_remat(mode)                               (the training remat policy)
   init_cache(cfg, batch, max_len)               -> per-layer caches
   init_paged_cache(cfg, num_blocks, block_size) -> per-layer pools
   init_hybrid_cache(cfg, kv_batch=, kv_len=, rec_batch=)
@@ -29,12 +31,13 @@ recurrent (mamba, mLSTM, sLSTM) and hybrid stacks: slice 10 serving):
 
 Caches are written in place and returned; a recurrent layer without
 ``rec_rows`` returns its new state as new tensors.  ``params["mtp"]``
-(the multi-token-prediction modules) is built and carried as the
-reference's, but only the training loss reads it, and training MTP, MoE
-and recurrent models is not ported: ``loss_fn`` raises for them.  The
-loss is sequence-chunked (logits for 512 tokens at a time, each chunk
-under ``torch.utils.checkpoint``), so a 256k-vocab train step never holds
-[B,T,V] logits.
+(the multi-token-prediction modules) is read by the training loss only.
+Training holds memory as the reference does: each scanned unit of
+``cfg.segments()`` runs under ``torch.utils.checkpoint`` (``_REMAT =
+"block"``), the recurrent scans keep only time-chunk boundary carries
+(``ssm.TIME_CHUNK``), and the loss is sequence-chunked (logits for 512
+tokens at a time, each chunk checkpointed), so a 256k-vocab train step
+never holds [B,T,V] logits.  Frontends and prefix-LM raise (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -58,28 +61,39 @@ XLSTM_KINDS = ("mlstm", "slstm")
 MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
 REC_KINDS = MAMBA_KINDS + XLSTM_KINDS
 
-# layer kinds the port can build and run today (the recurrent ones are
-# served only: their backward is not ported)
+# layer kinds the port can build, serve and train
 PORTED_KINDS = ATTN_KINDS + MLA_KINDS + MAMBA_KINDS + XLSTM_KINDS
 
 LOSS_CHUNK = 512
 
+# Rematerialisation policy for the training forward, as the reference's:
+# "block" checkpoints each scanned unit of ``cfg.segments()`` (its
+# activations are recomputed in the backward), "none" keeps everything.
+# The reference's "dots" (save matmul outputs only) belongs to the dry run
+# (ROADMAP A13).  A policy knob, not an architecture property.
+_REMAT = "block"
 
-def _check_ported(cfg: ArchConfig, *, training: bool = False) -> None:
+
+def set_remat(mode: str) -> None:
+    global _REMAT
+    if mode == "dots":
+        raise NotImplementedError(
+            "set_remat('dots') (checkpoint_dots_with_no_batch_dims) belongs "
+            "to the dry run, not ported yet (ROADMAP A13)")
+    if mode not in ("none", "block"):
+        raise ValueError(mode)
+    _REMAT = mode
+
+
+def _check_ported(cfg: ArchConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: unknown layer kind {kind!r}")
     if cfg.frontend or cfg.prefix_lm:
         raise NotImplementedError(
-            f"{cfg.name}: frontends and prefix-LM are not ported yet")
-    if training and (cfg.mtp_depth or cfg.moe is not None
-                     or has_recurrent(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: training MTP and MoE models (the MTP loss, the "
-            "0.01 * aux balance loss, the MoE backward) and recurrent "
-            "models (the backward through the scans) is not ported yet; "
-            "the port serves them")
+            f"{cfg.name}: frontends and prefix-LM are not ported yet "
+            "(ROADMAP A11)")
 
 
 def has_recurrent(cfg: ArchConfig) -> bool:
@@ -339,18 +353,49 @@ def _embed(params, cfg: ArchConfig, tokens):
 def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
                   offset=None, prefix_len=None, block_tables=None,
                   paged_kernel="auto", rec_rows=None, update_mask=None):
-    """Run every layer in order (the reference scans stacked segments).
-    The blocks' MoE aux losses are dropped: only training reads them."""
-    new_caches = []
-    for i, kind in enumerate(cfg.layer_pattern):
-        c = None if caches is None else caches[i]
-        h, nc, _aux = apply_block(
-            params["layers"][i], cfg, kind, h, positions=positions, cache=c,
-            offset=offset, prefix_len=prefix_len, block_tables=block_tables,
-            paged_kernel=paged_kernel, rec_rows=rec_rows,
-            update_mask=update_mask)
-        new_caches.append(nc)
-    return h, (None if caches is None else new_caches)
+    """Run every layer in order, unit by unit of ``cfg.segments()`` (the
+    reference scans each segment's stacked unit over its repeats).
+    Returns ``(h, new caches, aux)``.  Without caches (training and
+    ``forward``): new caches are None, ``aux`` is the MoE balance loss
+    summed per unit, then over a segment's units, then over segments, as
+    the reference sums it, and while gradients flow each unit runs under
+    ``torch.utils.checkpoint`` (``_REMAT``).  With caches (serving): the
+    new caches, and ``aux`` None."""
+    if caches is not None:
+        new_caches = []
+        for i, kind in enumerate(cfg.layer_pattern):
+            h, nc, _aux = apply_block(
+                params["layers"][i], cfg, kind, h, positions=positions,
+                cache=caches[i], offset=offset, prefix_len=prefix_len,
+                block_tables=block_tables, paged_kernel=paged_kernel,
+                rec_rows=rec_rows, update_mask=update_mask)
+            new_caches.append(nc)
+        return h, new_caches, None
+
+    def run_unit(h, first, unit):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j, kind in enumerate(unit):
+            h, _, aux = apply_block(params["layers"][first + j], cfg, kind,
+                                    h, positions=positions,
+                                    prefix_len=prefix_len)
+            aux_sum = aux_sum + aux
+        return h, aux_sum
+
+    remat = torch.is_grad_enabled() and _REMAT == "block"
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    first = 0
+    for unit, reps in cfg.segments():
+        auxs = []
+        for _ in range(reps):
+            if remat:
+                h, aux_sum = checkpoint(run_unit, h, first, unit,
+                                        use_reentrant=False)
+            else:
+                h, aux_sum = run_unit(h, first, unit)
+            auxs.append(aux_sum)
+            first += len(unit)
+        aux_total = aux_total + torch.stack(auxs).sum()
+    return h, None, aux_total
 
 
 def _head(params, cfg: ArchConfig, h):
@@ -371,7 +416,7 @@ def forward(params, cfg: ArchConfig, tokens):
     T = tokens.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     h = _embed(params, cfg, tokens)
-    h, _ = _run_segments(params, cfg, h, positions=positions)
+    h, _, _ = _run_segments(params, cfg, h, positions=positions)
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _head(params, cfg, h)
 
@@ -410,21 +455,48 @@ def _chunked_xent(params, cfg: ArchConfig, h, labels, mask):
 
 def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
     """batch: {tokens [B,T], labels [B,T]} (integer tensors); labels < 0
-    are masked.  Returns (loss, metrics) with metrics {"xent", "aux"}, as
-    the reference's dense path (aux is the MoE balance loss: 0 here).
-    Raises for MTP, MoE and recurrent models, whose training is not
-    ported yet."""
-    _check_ported(cfg, training=True)
+    are masked.  Returns (loss, metrics) as the reference's: metrics
+    {"xent", "aux"} (aux is the MoE balance loss, summed over blocks),
+    and "mtp" (the MTP modules' summed cross-entropy) for MTP models;
+    loss = xent + mtp_loss_weight * mtp / mtp_depth + 0.01 * aux (the aux
+    term for MoE stacks only)."""
+    _check_ported(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     T = tokens.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     h = _embed(params, cfg, tokens)
-    h, _ = _run_segments(params, cfg, h, positions=positions)
+    h, _, aux = _run_segments(params, cfg, h, positions=positions)
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     mask = (labels >= 0).float()
     loss = _chunked_xent(params, cfg, h, torch.clamp(labels, min=0), mask)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return loss, {"xent": loss, "aux": aux}
+    metrics = {"xent": loss, "aux": aux}
+
+    if cfg.mtp_depth and "mtp" in params:
+        # DeepSeek MTP: module i predicts token t+1+i from [h_t ; emb_{t+i}]
+        mtp_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+        h_cur = h
+        kind = "mla" if cfg.mla else "attn"
+        for i, mod in enumerate(params["mtp"]):
+            emb_next = F.embedding(tokens[:, 1 + i:], params["embed"])
+            h_in = torch.cat([h_cur[:, :emb_next.shape[1]],
+                              emb_next.to(h_cur.dtype)], dim=-1)
+            h_i = L.dense(mod["proj"], h_in)
+            pos_i = torch.arange(h_i.shape[1], dtype=torch.int32,
+                                 device=h.device)
+            h_i, _, _ = apply_block(mod["block"], cfg, kind, h_i,
+                                    positions=pos_i)
+            h_i = L.rms_norm(mod["norm"], h_i, cfg.norm_eps)
+            lbl_i = labels[:, 1 + i:]
+            msk_i = (lbl_i >= 0).float()
+            mtp_loss = mtp_loss + _chunked_xent(
+                params, cfg, h_i, torch.clamp(lbl_i, min=0), msk_i)
+            h_cur = h_i
+        loss = loss + cfg.mtp_loss_weight * mtp_loss / cfg.mtp_depth
+        metrics["mtp"] = mtp_loss
+
+    if cfg.moe:
+        loss = loss + 0.01 * aux
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +511,7 @@ def prefill(params, cfg: ArchConfig, tokens, cache):
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     h = _embed(params, cfg, tokens)
-    h, new_caches = _run_segments(params, cfg, h, positions=positions,
+    h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=0)
     h_last = L.rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _head(params, cfg, h_last), new_caches, T
@@ -471,7 +543,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, offset,
     if active is not None:
         update_mask = torch.as_tensor(active, device=dev).reshape(B, 1)             .to(torch.bool)
     h = _embed(params, cfg, token)
-    h, new_caches = _run_segments(params, cfg, h, positions=positions,
+    h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
                                   block_tables=block_tables,
                                   paged_kernel=paged_kernel,
@@ -510,7 +582,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, offset,
     if valid is not None:
         update_mask = (ar < int(valid))[None, :].expand(B, T)
     h = _embed(params, cfg, tokens)
-    h, new_caches = _run_segments(params, cfg, h, positions=positions,
+    h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
                                   block_tables=block_tables,
                                   rec_rows=rec_rows, update_mask=update_mask)

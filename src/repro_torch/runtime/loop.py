@@ -11,7 +11,11 @@ Responsibilities per step:
      recovery (``runtime/soak.py`` runs it).
 
 The step function is the port's ``(state, batch) -> (state, metrics)``;
-the reference's takes and returns the state's parts as a tuple.
+the reference's takes and returns the state's parts as a tuple.  Each
+history row holds the step's ``loss`` and seconds, as the reference's,
+and the model's metrics the step reports (``MODEL_METRICS``: the
+cross-entropy, the MoE balance loss, the MTP loss), which the log line
+prints too.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ import torch
 from repro_torch.checkpoint.checkpointing import CheckpointManager
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.runtime.fault_tolerance import HostMonitor, StragglerTracker
+
+
+# the model's metrics (``loss_fn``'s), carried into each history row
+MODEL_METRICS = ("xent", "aux", "mtp")
 
 
 class WorkerFailure(RuntimeError):
@@ -150,10 +158,14 @@ class TrainLoop:
                         raise WorkerFailure(failed)
 
                 loss = float(metrics.get("loss", np.nan))
-                self.history.append({"step": step, "loss": loss, "sec": dt})
+                model = {k: float(metrics[k]) for k in MODEL_METRICS
+                         if k in metrics}
+                self.history.append({"step": step, "loss": loss, "sec": dt,
+                                     **model})
                 if self.cfg.log_every and step % self.cfg.log_every == 0:
-                    print(f"step {step:5d} loss {loss:8.4f} {dt*1e3:7.1f} ms",
-                          flush=True)
+                    extra = "".join(f" {k} {v:.4f}" for k, v in model.items())
+                    print(f"step {step:5d} loss {loss:8.4f}{extra} "
+                          f"{dt*1e3:7.1f} ms", flush=True)
                 step += 1
                 if ckpt and step % self.cfg.checkpoint_every == 0:
                     ckpt.save(step, state,

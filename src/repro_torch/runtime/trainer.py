@@ -219,7 +219,7 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
     (state, metrics)``, where ``batch`` holds the GLOBAL batch (``tokens``,
     ``labels``, ``[B, T]`` integers; rank r takes rows
     ``[r·B/W, (r+1)·B/W)``) and metrics the world-mean ``loss``, ``xent``,
-    ``aux`` and the ``lr`` as f32 scalars.  ``init_state.superstep_layout``
+    ``aux`` (and ``mtp`` for MTP models) and the ``lr`` as f32 scalars.  ``init_state.superstep_layout``
     is the reference's moment-layout tag."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")

@@ -128,14 +128,6 @@ def test_init_paged_cache_latent_pools(cfgs):
             assert not a[leaf].any()
 
 
-def test_training_mtp_moe_is_refused(cfgs, params):
-    cfg, _ = cfgs
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-             "labels": torch.zeros(1, 4, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="MTP and MoE"):
-        T.loss_fn(params[0], cfg, batch)
-
-
 def test_forward_matches_reference(cfgs, params):
     cfg, jcfg = cfgs
     p, jp = params

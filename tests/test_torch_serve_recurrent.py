@@ -309,12 +309,3 @@ def test_cli_serves_every_request_on_cpu(extra, capsys):
     if "--rec-slots" in extra:
         assert "1×paged + 7×recurrent (1 recurrent rows)" in out
         assert metrics.peak_active <= 1
-
-
-def test_training_recurrent_is_refused():
-    cfg = R.get_config(XLSTM)
-    params = T.init_params(cfg, 0, device="cpu")
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-             "labels": torch.zeros(1, 4, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        T.loss_fn(params, cfg, batch)
