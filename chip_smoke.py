@@ -199,6 +199,33 @@ The quickest proof that the port starts on the card.  Phases, in order
   5h. mtp     — the same for DeepSeek-V3 with one MLA layer and its MTP
                 module (``DS_GRAD_CUT``, ``DS_GRAD_BOUNDS``): ``loss ==
                 xent + 0.3 mtp + 0.01 aux`` to f32 rounding;
+  slice 12 (the frontend models, trained and decoded; the fitted link):
+  5i. pali    — ``launch.train.run`` on paligemma-3b at published widths
+                with ONE cut, 18 -> 6 layers (``PALI_TRAIN_CUT``), world
+                4, all auto, 8 rows of 256 image-stub embeddings + 1792
+                text tokens (2048 positions: the prefix-LM on the blocked
+                attention path), 3 steps: phase 5b's checks and prints
+                (tokens/s over the text tokens);
+  5j. musicgen — the same on musicgen-medium at full depth, 48 layers
+                (``MUSICGEN_TRAIN_CUT``), 8 x (64 + 1024);
+  3p. decode  — paligemma-3b at full width, no cut: 8 rows of 256 + 64
+                through model-level ``prefill``, 32 greedy
+                ``decode_step``s over the contiguous cache; the logits
+                within ``FRONTEND_LOGIT_RTOL`` of ``forward`` per row,
+                the bidirectional prefix and causal text, no
+                synchronising call; prefill ms, decode step (host clock,
+                device kernels, idle share), peak memory;
+  3m. decode  — the same for musicgen-medium, 48 layers, 64 + 64 (its
+                sinusoid at decode offsets; a causal prefix);
+  5k. link    — ``calibrate.fit_link_params`` at world 4 on the card over
+                the reference's grid; the all-auto plans of gemma2-2b at 2
+                layers and of musicgen-medium at 2 layers priced with
+                ``TPU_V5E_ICI`` and with the fitted link; ``launch.train
+                --calibrate --checkpoint-dir D`` on the latter, 1 step,
+                then its resume (``calibrate: reloaded``, the same plan);
+                B1/B2 launches = steps x buckets with the codec x 2;
+                every codec bucket of the calibrated plan reduce-scattered
+                bit for bit through the kernels and the plain versions;
   9. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -221,6 +248,12 @@ B4 at 8 rows of a 256 MB bucket beside ``torch.sum`` and the bound.
 
 runs the train runs of phases 5b and 5d with the training remat off and
 on (none, block, block, none) and prints each run's step time and peak.
+
+    python3 chip_smoke.py --calibrate-runs src
+
+runs phase 5k ``CALIBRATE_RUNS`` times (a fresh fit each, so the plans
+and the codec buckets held to the plain versions vary) and prints each
+run's fitted link, plan and decode-add launches.
 """
 
 import gc
@@ -3104,13 +3137,15 @@ def phase_schedules(torch, dev):
     return timings
 
 
-def _counted_run(torch, tops, cfg, args, label):
+def _counted_run(torch, tops, cfg, args, label, steps=None):
     """``launch.train.run(cfg, args)`` with the decode-add counts set to 0
-    just before and read just after; the losses must be finite.  Prints
-    the plan.  Returns ``(out, counts, want, peak)``: ``want`` is each
-    codec's steps x (buckets with the codec) x log2(world)."""
+    just before and read just after; it must take ``steps`` steps (default
+    ``args.steps``; fewer when it resumes) with finite losses.  Prints the
+    plan.  Returns ``(out, counts, want, peak)``: ``want`` is each codec's
+    steps x (buckets with the codec) x log2(world)."""
     import numpy as np
     from repro_torch.launch import train as train_cli
+    steps = args.steps if steps is None else steps
     dev = torch.device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3120,10 +3155,10 @@ def _counted_run(torch, tops, cfg, args, label):
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     eng = out["engine"]
     losses = [h["loss"] for h in out["history"]]
-    if len(losses) != args.steps or not np.all(np.isfinite(losses)):
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{label}: losses {losses}")
     hops = args.devices.bit_length() - 1
-    want = {c: args.steps * eng.codec_names.count(c) * hops
+    want = {c: steps * eng.codec_names.count(c) * hops
             for c in ("bf16", "int8")}
     print(f"  plan: {eng.n_buckets} buckets, "
           f"{[b.length for b in eng.buckets]} f32 elements; "
@@ -3238,8 +3273,8 @@ def qwen_config(cut=None):
     return dataclasses.replace(get_config("qwen2.5-3b"), **(cut or {}))
 
 
-def _soak_dir(need: int):
-    """A new directory for the soak's checkpoints on whichever of the
+def _soak_dir(need: int, prefix="soak-"):
+    """A new directory for a phase's checkpoints on whichever of the
     temporary directory and the checkout's ``build/`` has more room; it
     must have ``need`` bytes free."""
     import shutil
@@ -3254,10 +3289,10 @@ def _soak_dir(need: int):
         f"{d} {f / 1e9:.1f} GB free" for d, f in free.items())
         + f"; {need / 1e9:.1f} GB needed (keep 3 + one being written)")
     if free[where] < need:
-        raise AssertionError(f"no room for the soak's checkpoints: "
+        raise AssertionError(f"no room for the checkpoints: "
                              f"{free[where] / 1e9:.1f} GB free, "
                              f"{need / 1e9:.1f} GB needed")
-    return tempfile.mkdtemp(prefix="soak-", dir=where)
+    return tempfile.mkdtemp(prefix=prefix, dir=where)
 
 
 def _differing_bits(torch, a, b):
@@ -3777,6 +3812,381 @@ def phase_grads(torch, cfg, dev, bounds, label):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the frontend models trained and decoded, the fitted link
+# ---------------------------------------------------------------------------
+
+# [5i] paligemma-3b at published widths with ONE cut, 18 -> 6 layers
+# (1,189,767,168 params: 50.0 GB at 42 B a parameter at world 4; 8 layers
+# would be 59.2 GB plus the sync's buffers, past the card).  8 rows of
+# 1792 text tokens after the 256 image-stub embeddings: 2048 positions,
+# so the prefix-LM attention takes the blocked path (query blocks of 512,
+# the first reaching ``pre_hi``).  World 4, all auto, 3 steps.
+PALI_TRAIN_CUT = dict(num_layers=6, layer_pattern=("attn",) * 6)
+PALI_TRAIN_ARGS = ["--arch", "paligemma-3b", "--device", "cuda",
+                   "--devices", "4", "--steps", "3", "--batch", "8",
+                   "--seq", "1792", "--lr", "3e-4", "--seed",
+                   "0"] + TRAIN_AUTO
+# [5j] musicgen-medium at full depth, no cut (48 layers, 1,366,574,592
+# params: 57.4 GB at 42 B a parameter); 8 rows of 1024 tokens after the
+# 64 conditioning embeddings, sinusoidal positions; world 4, all auto, 3
+# steps.
+MUSICGEN_TRAIN_CUT = {}
+MUSICGEN_TRAIN_ARGS = ["--arch", "musicgen-medium", "--device", "cuda",
+                       "--devices", "4", "--steps", "3", "--batch", "8",
+                       "--seq", "1024", "--lr", "3e-4", "--seed",
+                       "0"] + TRAIN_AUTO
+# [3p] / [3m] model-level decode at full width, no cut (paligemma-3b 18
+# layers, 5.0 GB of bf16; musicgen-medium 48 layers, 2.7 GB): 8 rows of
+# the frontend stub and 64 prompt tokens through ``prefill``, then 32
+# greedy ``decode_step``s over the contiguous cache.
+FRONTEND_DECODE = dict(rows=8, prompt=64, steps=32)
+# The decode's logits (prefill's last, then each step's) against
+# ``forward`` on the same tokens, per (row, position) as max |diff| over
+# the vocab relative to the forward row's RMS.  Fixed before the first
+# run on the card: the two paths round every bf16 activation (2^-9) at
+# other GEMM shapes (a 320-token prefill and one-token steps against one
+# 352-token pass), and 18 or 48 random-init layers carry it to the
+# logits; phase 4's decode paths of one shape read 0.25 over logits of
+# RMS ~3-5, about 5-8 %.
+FRONTEND_LOGIT_RTOL = 0.1
+# [5k] the fitted link: ``fit_link_params`` at world 4 over the
+# reference's grid, then ``launch.train --calibrate`` twice into one
+# checkpoint directory on musicgen-medium's widths at 2 layers
+# (64,101,888 params), 1 step and its resume.  Not gemma2-2b at 2 layers
+# (5c's model): its int8 EF vector, 4 x 745.6 M f32, is a checkpoint leaf
+# past msgpack's 4 GiB bin (ROADMAP C7), and an auto plan on int8 would
+# fail the save; gemma's two plans are priced and printed instead.
+CAL_TRAIN_CUT = dict(num_layers=2, layer_pattern=("attn",) * 2)
+CAL_TRAIN_ARGS = ["--arch", "musicgen-medium", "--device", "cuda",
+                  "--devices", "4", "--batch", "8", "--seq", "1024",
+                  "--lr", "3e-4", "--seed", "0", "--calibrate"] + TRAIN_AUTO
+
+
+def phase_train_frontend(torch, tops, tref, codecs, cfg, argv):
+    """[5i] / [5j]: ``phase_train_auto`` on a frontend model with ``argv``
+    (its plan, B1/B2 launches = steps x buckets with the codec x
+    log2(world), finite losses, step time and tokens/s over the TEXT
+    tokens, peak memory, a profiled step's idle share, every codec'd
+    bucket's real gradients through the kernels and the plain versions bit
+    for bit).  Returns the launch counts."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import count_params, get_config
+    args = train_cli.parse_args(argv)
+    n = count_params(cfg)
+    pos = cfg.frontend_tokens + args.seq
+    blocked = (f", the blocked attention path (query blocks of "
+               f"{L.QUERY_CHUNK})" if pos >= L.QUERY_CHUNK_THRESHOLD else "")
+    prefix = "a bidirectional prefix" if cfg.prefix_lm else \
+        f"a causal prefix, {cfg.pos_embed} positions"
+    card = f"({_smi()}) " if args.device == "cuda" else ""
+    print(f"  {card}{cfg.name}: {cfg.num_layers} of "
+          f"{get_config(cfg.name).num_layers} layers, {n:,} params "
+          f"({42 * n / 1e9:.1f} GB at 42 B a parameter); {args.batch} rows "
+          f"of {cfg.frontend_tokens} frontend-stub embeddings + {args.seq} "
+          f"text tokens = {pos} positions ({prefix}{blocked}); tokens/s "
+          f"counts the text tokens")
+    return phase_train_auto(torch, tops, tref, codecs, cfg, None, argv=argv)
+
+
+def _row_rel(torch, got, want):
+    """max |got - want| over the last axis relative to the RMS of want's
+    row, for every leading index."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().square().mean(-1).sqrt()
+    return err / torch.clamp(rms, min=1e-6)
+
+
+def phase_frontend_decode(torch, cfg, dev, rtol=FRONTEND_LOGIT_RTOL):
+    """[3p] / [3m]: ``cfg`` at full width, random init from seed 1: 8 rows
+    of ``SyntheticLM``'s frontend stub and 64 prompt tokens through
+    ``prefill`` (its offset must be Tf + 64), then 32 greedy
+    ``decode_step``s over the contiguous cache, each row at its own
+    offset.  Checks: every logit finite; the prefill's and every step's
+    logits within ``rtol`` of ``forward`` on the same tokens per row
+    relative to the row's RMS; changing the last frontend embedding moves
+    position 0 (a prefix-LM) or no position before it (a causal prefix);
+    changing a text token moves no earlier position; one decode step under
+    ``set_sync_debug_mode("error")``.  Prints the prefill's ms, the decode
+    step's ms on the host clock (the greedy loop, and one step
+    synchronised) and its device kernels and idle share (profiler), and
+    the peak memory.  Returns the worst relative error."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_params
+    B, P, G = (FRONTEND_DECODE[k] for k in ("rows", "prompt", "steps"))
+    Tf, V = cfg.frontend_tokens, cfg.vocab_size
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, 1, device=dev)
+    batch = SyntheticLM(cfg, DataConfig(global_batch=B, seq_len=P,
+                                        seed=0)).batch(0)
+    prompt = torch.as_tensor(batch["tokens"], device=dev)
+    fe = torch.as_tensor(batch["frontend"], device=dev)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, {count_params(cfg):,} "
+          f"params ({cfg.param_dtype}); {B} rows of {Tf} frontend-stub "
+          f"embeddings ({cfg.frontend_dim} wide) + {P} prompt tokens, {G} "
+          f"greedy decode steps over the contiguous cache")
+    cache = T.init_cache(cfg, B, Tf + P + G, device=dev)
+    with torch.inference_mode():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache, off = T.prefill(params, cfg, prompt, cache, fe)
+        _sync(torch, dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if off != Tf + P:
+            raise AssertionError(f"prefill offset {off}, want {Tf + P}")
+        base = torch.full((B,), off, dtype=torch.int32, device=dev)
+        out, fed = [logits[:, 0]], []
+        tok = logits.argmax(-1)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for i in range(G):
+            fed.append(tok)
+            logits, cache = T.decode_step(params, cfg, tok, cache, base + i)
+            out.append(logits[:, 0])
+            tok = logits.argmax(-1)
+        _sync(torch, dev)
+        loop_ms = (time.perf_counter() - t0) / G * 1e3
+        got = torch.stack(out, 1)                        # [B, G+1, V]
+        if tuple(got.shape) != (B, G + 1, V) or \
+                not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name}: decode logits not finite or "
+                                 f"of shape {tuple(got.shape)}")
+        full = torch.cat([prompt] + fed, dim=1)           # [B, P+G]
+        want = T.forward(params, cfg, full, fe)[:, Tf + P - 1:]
+        rel = _row_rel(torch, got, want)
+        worst = rel.max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        print(f"  prefill ({B} x {Tf + P} positions) {prefill_ms:.2f} ms; "
+              f"offset {off} = {Tf} + {P}; greedy decode {loop_ms:.2f} ms a "
+              f"step (host clock over {G} steps)")
+        print(f"  prefill + decode vs forward on the same tokens ({B} rows "
+              f"x {G + 1} positions): max|diff| / RMS(forward row) <= "
+              f"{worst:.4f} (bound {rtol}), argmax agreement "
+              f"{agree * 100:.1f}%, |logits| <= "
+              f"{want.abs().max().item():.3f}")
+        if not worst <= rtol:
+            raise AssertionError(f"{cfg.name}: decode logits {worst} of the "
+                                 f"row RMS from forward's")
+        del want, got, out
+        # the prefix: bidirectional for a prefix-LM, causal otherwise; the
+        # text: causal.  Two rows, against a forward of the same two rows.
+        two, fe2 = full[:2], fe[:2]
+        base_l = T.forward(params, cfg, two, fe2)
+        moved = fe2.clone()
+        moved[:, -1] += 0.5
+        l_fe = T.forward(params, cfg, two, moved)
+        d0 = (l_fe[:, 0] - base_l[:, 0]).abs().max().item()
+        d_pre = (l_fe[:, :Tf - 1] - base_l[:, :Tf - 1]).abs().max().item()
+        c = P // 2
+        tok2 = two.clone()
+        tok2[:, c] = (tok2[:, c] + 7) % V
+        l_tok = T.forward(params, cfg, tok2, fe2)
+        d_before = (l_tok[:, :Tf + c] - base_l[:, :Tf + c]).abs().max().item()
+        d_at = (l_tok[:, Tf + c] - base_l[:, Tf + c]).abs().max().item()
+        kind = "bidirectional" if cfg.prefix_lm else "causal"
+        print(f"  {kind} prefix: the last frontend embedding + 0.5 moves "
+              f"position 0 by {d0:.4e} and positions 0..{Tf - 2} by at most "
+              f"{d_pre:.4e}; text token {c} changed: positions 0..{Tf + c - 1}"
+              f" move {d_before:.4e}, position {Tf + c} {d_at:.4e}")
+        if cfg.prefix_lm and not d0 > 0:
+            raise AssertionError("prefix-LM: position 0 does not see the "
+                                 "last prefix embedding")
+        if not cfg.prefix_lm and d_pre != 0:
+            raise AssertionError("causal prefix: an earlier prefix position "
+                                 "saw a later embedding")
+        if d_before != 0 or not d_at > 0:
+            raise AssertionError(f"text causality: earlier positions moved "
+                                 f"{d_before}, the changed one {d_at}")
+        del base_l, l_fe, l_tok
+        last = base + (G - 1)
+        step = lambda: T.decode_step(params, cfg, fed[-1], cache, last)
+        if dev.type == "cuda":
+            _sync_free(torch, step)
+        step()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        _sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step()
+                _sync(torch, dev)
+            kernels = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            busy = _span_us(kernels) / 3e3
+            print(f"  decode step {step_ms:.2f} ms (host clock, "
+                  f"synchronised); device kernels {busy:.2f} ms per step "
+                  f"(profiler), so the card idles "
+                  f"{max(0.0, 1 - busy / step_ms) * 100:.1f}% of a step")
+            print(prof.key_averages().table(sort_by="self_device_time_total",
+                                            row_limit=8,
+                                            max_name_column_width=40))
+        else:
+            print(f"  decode step {step_ms:.2f} ms (host clock)")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"  {cfg.name}: peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.1f} GB)")
+    return worst
+
+
+class _Tee:
+    """A stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _plan(torch, cfg, world, link):
+    """The all-auto bucket plan of ``cfg`` at ``world`` priced with
+    ``link`` (host only)."""
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.core.superstep import engine_for
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import reference_leaves
+    return engine_for(reference_leaves(T.init_params(cfg, device="meta"),
+                                       cfg),
+                      BSPConfig(schedule="auto", bucket_mb="auto",
+                                bucket_codec="auto", link=link),
+                      world, force_dtype=torch.float32, zero1=True)
+
+
+def phase_calibrate(torch, tops, tref, codecs, cfg, dev, argv=None):
+    """[5k]: ``calibrate.fit_link_params`` at the world of ``argv``
+    (default ``CAL_TRAIN_ARGS``) on ``dev`` over the reference's grid
+    (``describe()``: alpha, bandwidth, hop, residual and every sample; a
+    hop or bandwidth at the fit's clamp is said to be so); the all-auto
+    plans of gemma2-2b at 2 layers and of ``cfg`` priced with
+    ``TPU_V5E_ICI`` and with the fitted link; then ``launch.train.run`` on
+    ``cfg`` with ``--calibrate --checkpoint-dir D`` for 1 step (a fresh
+    fit, written to ``D/link_calibration.json`` as ``{"link": ...}``, the
+    plan priced with it) and again with ``--steps 2`` (it must print
+    ``calibrate: reloaded``, resume and keep the plan).  Each run through
+    ``_counted_run``: B1/B2 launches = its steps x buckets with the codec x
+    log2(world), whatever codecs the fitted link picks (none is a valid
+    outcome, and is said).  Between the runs, a train state built with the
+    persisted link must give the first run's plan, and every bucket of it
+    that carries a codec is held to the plain versions on real gradients
+    (``real_bucket_check``).  Returns the launch counts of both runs."""
+    import contextlib
+    import io
+    import json
+    import shutil
+    from repro_torch.core import calibrate as CAL
+    from repro_torch.core.cost_model import TPU_V5E_ICI, LinkParams
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import make_bsp_train_step
+    argv = list(argv or CAL_TRAIN_ARGS)
+    world = train_cli.parse_args(argv).devices
+    hops = world.bit_length() - 1
+    t0 = time.perf_counter()
+    fit = CAL.fit_link_params(world, min_devices=2, device=dev)
+    print(f"  fit_link_params at world {world} on {dev} "
+          f"({time.perf_counter() - t0:.2f} s):")
+    for line in fit.describe().splitlines():
+        print(f"  {line}")
+    lk = fit.link
+    grid = len(CAL.FIT_SCHEDULES) * len(CAL.FIT_PAYLOAD_ELEMS)
+    if len(fit.samples) != grid or not all(
+            0 < s.seconds < math.inf for s in fit.samples) or not all(
+            0 < v < math.inf for v in (lk.alpha_s, lk.bw_Bps, lk.hop)) \
+            or lk.name != f"fitted-{dev.type}{world}":
+        raise AssertionError(f"link fit: {fit}")
+    # fit_from_samples clamps a least-squares value <= 0 to 1e-12
+    clamped = [what for what, v in (("hop", lk.hop),
+                                    ("1/bandwidth", 1 / lk.bw_Bps))
+               if v <= 1e-12]
+    print("  at the fit's clamp of 1e-12 (a least-squares value <= 0, "
+          f"not identified): {', '.join(clamped) or 'nothing'}")
+    for c in (train_config(TRAIN_FORCED_CUT), cfg):
+        for link in (TPU_V5E_ICI, lk):
+            print(f"  plan of {c.name} at {c.num_layers} layers, world "
+                  f"{world}, priced with {link.name}: "
+                  f"{_plan(torch, c, world, link).describe()}")
+    # a checkpoint holds 26 B a parameter (bf16 params, two f32 moments,
+    # the f32 EF of 4 ranks); keep 3 + one being written
+    root = _soak_dir(4 * 26 * count_params(cfg), prefix="calibrate-")
+    path = Path(root) / train_cli.CALIBRATION_FILE
+
+    def counted(steps, label):
+        args = train_cli.parse_args(argv + ["--steps", str(steps),
+                                            "--checkpoint-dir", root])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            out, counts, want, _ = _counted_run(torch, tops, cfg, args,
+                                                label, steps=1)
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want} "
+                                 f"(= 1 step x buckets with the codec x "
+                                 f"log2({world}))")
+        return args, out["engine"], buf.getvalue(), counts, \
+            out["history"][0]
+
+    args1, eng1, text1, c1, h1 = counted(1, "calibrate run 1")
+    data = json.loads(path.read_text())
+    link1 = LinkParams(**data["link"])
+    if list(data) != ["link"] or eng1.link != link1 or \
+            "calibrate: reloaded" in text1 or \
+            f"fitted {link1.name}: alpha=" not in text1:
+        raise AssertionError(f"calibrate run 1: {data}, plan link "
+                             f"{eng1.link}")
+    _, init_state = make_bsp_train_step(
+        cfg, AdamWConfig(lr=args1.lr, total_steps=args1.steps,
+                         warmup_steps=1), train_cli.bsp_config(args1, link1),
+        world, device=dev)
+    if init_state.engine.describe() != eng1.describe():
+        raise AssertionError(f"calibrate: plan {init_state.engine.describe()}"
+                             f" from the persisted link, the run's "
+                             f"{eng1.describe()}")
+    state = init_state(T.init_params(cfg, args1.seed, device=dev))
+    batches = SyntheticLM(cfg, DataConfig(global_batch=args1.batch,
+                                          seq_len=args1.seq,
+                                          seed=args1.seed))
+    pairs = [(b, c) for b, c in zip(eng1.buckets, eng1.codec_names)
+             if c != "none"]
+    real_bucket_check(torch, cfg, tref, codecs, eng1, state.params,
+                      batches.batch(0), dev, pairs)
+    del state, init_state
+    _, eng2, text2, c2, h2 = counted(2, "calibrate run 2")
+    reload = f"calibrate: reloaded {link1.name} from {path}"
+    if reload not in text2 or f"resumed from {root} at step 1" not in text2 \
+            or eng2.describe() != eng1.describe() or eng2.link != link1:
+        raise AssertionError(f"calibrate run 2: plan {eng2.describe()}, "
+                             f"the first run's {eng1.describe()}")
+    print(f"  --calibrate run 1: fitted {link1.name} and wrote {path}; "
+          f"step 0 loss {h1['loss']:.4f} in {h1['sec']:.3f} s; run 2: "
+          f"'{reload}', resumed, the same plan, step 1 loss "
+          f"{h2['loss']:.4f}; launches {c1} and {c2} = 1 step x buckets "
+          f"with the codec x {hops} hops each; "
+          + (f"{len(pairs)} codec bucket(s) of the plan held bit for bit"
+             if pairs else "the calibrated plan puts no bucket on a "
+             "codec, so no decode-add launches and no bucket to hold (a "
+             "valid outcome)"))
+    shutil.rmtree(root, ignore_errors=True)
+    return {c: c1[c] + c2[c] for c in c1}
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel instantiation from ``-Xptxas -v``
     output: template arguments, registers, stack and spills."""
@@ -3908,9 +4318,50 @@ def remat_timings(torch) -> int:
     return 0
 
 
+CALIBRATE_RUNS = 4
+
+
+def calibrate_runs(torch) -> int:
+    """``--calibrate-runs SRC``: phase 5k ``CALIBRATE_RUNS`` times on
+    musicgen-medium at 2 layers, each with its own fit; every codec bucket
+    of each run's plan is held to the plain versions as in the main run.
+    Prints one JSON line of the fits, plans and launches."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_reduce import ops as tops, ref as tref
+    from repro_torch.optim.compression import Bf16Codec, Int8Codec
+    build.build(["tree_reduce"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)
+    codecs = {"bf16": Bf16Codec(), "int8": Int8Codec()}
+    cfg = cut_config("musicgen-medium", CAL_TRAIN_CUT)
+    res = []
+    for i in range(CALIBRATE_RUNS):
+        print(f"[5k] run {i}", flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            launches = phase_calibrate(torch, tops, tref, codecs, cfg, dev)
+        text = buf.getvalue()
+        res.append(dict(
+            fits=re.findall(r"fitted fitted-\S+: (.*) \(12 samples\)",
+                            text),
+            plan=re.findall(r"^superstep: (.*)$", text, re.M)[:1],
+            launches=launches,
+            held=text.count("through the kernels is bit-identical")))
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"calibrate_runs": res}))
+    print(_smi())
+    return 0
+
+
 TIMINGS = {"--decode-timings": decode_timings,
            "--tree-timings": tree_timings,
-           "--remat-timings": remat_timings}
+           "--remat-timings": remat_timings,
+           "--calibrate-runs": calibrate_runs}
 
 
 def main(argv=None) -> int:
@@ -4143,6 +4594,39 @@ def main(argv=None) -> int:
     phase_decode_step(torch, jamba, dev, JAMBA_LOGIT_ATOL,
                       contiguous=JAMBA_LOGIT_ATOL)
     print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    frontend_launches = {}
+    for tag, name, cut, argv in (
+            ("5i", "paligemma-3b", PALI_TRAIN_CUT, PALI_TRAIN_ARGS),
+            ("5j", "musicgen-medium", MUSICGEN_TRAIN_CUT,
+             MUSICGEN_TRAIN_ARGS)):
+        fcfg = cut_config(name, cut)
+        print(f"[{tag}] train {name} ({fcfg.num_layers} layers) at world 4 "
+              "with its frontend stub, every choice left to the autotuner",
+              flush=True)
+        t0 = time.perf_counter()
+        frontend_launches[tag] = phase_train_frontend(
+            torch, tops, tref, codecs, fcfg, argv)
+        print(f"  phase {tag}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag, name in (("3p", "paligemma-3b"), ("3m", "musicgen-medium")):
+        print(f"[{tag}] decode {name} at full width (model-level prefill + "
+              "greedy decode steps over the contiguous cache)", flush=True)
+        t0 = time.perf_counter()
+        phase_frontend_decode(torch, get_config(name), dev)
+        print(f"  phase {tag}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    cal_cfg = cut_config("musicgen-medium", CAL_TRAIN_CUT)
+    print("[5k] fit the link on the card, then --calibrate training and "
+          "its resume", flush=True)
+    t0 = time.perf_counter()
+    cal_launches = phase_calibrate(torch, tops, tref, codecs, cal_cfg,
+                                   dev)
+    print(f"  phase 5k: {time.perf_counter() - t0:.1f} s")
 
     tr = "src/repro/kernels/tree_reduce/kernel.py"
     kernels = [dict(
@@ -4166,6 +4650,9 @@ def main(argv=None) -> int:
             auto_launches=auto_launches[codec],
             qwen_auto_launches=qwen_launches[codec],
             xlstm_launches=xlstm_launches[codec],
+            paligemma_launches=frontend_launches["5i"][codec],
+            musicgen_launches=frontend_launches["5j"][codec],
+            calibrate_launches=cal_launches[codec],
             max_abs_err=codec_err[codec], elements=hop,
             **codec_timing[codec]))
     kernels.append(dict(

@@ -38,7 +38,8 @@ class BSPConfig:
                   picks a codec per bucket.
     link        : ``cost_model.LinkParams`` the autotuner prices with; None
                   → the reference's analytic ``TPU_V5E_ICI`` (a TPU's
-                  parameter set: links fitted on the card are ROADMAP A13).
+                  parameter set); ``core.calibrate.fit_link_params`` (the
+                  train CLI's ``--calibrate``) fits one on the device.
     """
 
     sync_axes: Tuple[str, ...] = ("data",)

@@ -1,17 +1,20 @@
-"""Calibration: fit cost-model/simulator parameters from measurements (the
-port's copy of the half of ``repro/core/calibrate.py`` that needs no
-collective timing).
+"""Calibration: fit cost-model/simulator parameters from measurements (port
+of ``repro/core/calibrate.py``).
 
 Two calibration paths live here:
 
-1. **Link-parameter fitting**: ``fit_from_samples`` least-squares-fits
+1. **Link-parameter fitting** (``fit_link_params``): time a small grid of
+   the port's collectives — (schedule × payload) all-reduces of a
+   rank-stacked ``[world, per_rank]`` f32 tensor through the Schedule-IR
+   lowering, on the card (or the CPU) — and least-squares-fit
    ``cost_model.LinkParams`` (α launch latency, per-hop latency, β
-   inverse-bandwidth) to measured (schedule, payload) → seconds samples.
+   inverse-bandwidth) with ``fit_from_samples``.
    ``cost_model.step_features`` makes every IR program's predicted cost
-   LINEAR in those three parameters, so the fit is one ``lstsq``.  Timing
-   the collectives themselves on the card (``_measure_collective``,
-   ``fit_link_params``, the train CLI's ``--calibrate``) is ROADMAP A13 and
-   raises here.
+   LINEAR in those three parameters, so the fit is one ``lstsq``.  The
+   fitted params plug into the autotuner through ``BSPConfig(link=…)``
+   (the train CLI's ``--calibrate``).  The world is the caller's: the
+   ranks are stacked on one device, so there is no device count to read.
+   On one card the "link" is the card's memory, not a network.
 
 2. **AMO-baseline simulator fitting** (``search``): the FractalSync columns
    of Table 1 are parameter-free (exact from topology), but the Naïve/XY
@@ -27,6 +30,8 @@ Two calibration paths live here:
    parameters are frozen into ``simulator.DEFAULT_PARAMS``.
 
 Run:  PYTHONPATH=src python -m repro_torch.core.calibrate [--iters N]
+      PYTHONPATH=src python -m repro_torch.core.calibrate --links \
+          --devices 8 [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ import json
 import math
 import os
 import random
+import time
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 from . import cost_model, schedule_ir
 from .cost_model import LinkParams
@@ -121,21 +127,79 @@ def fit_from_samples(samples: Sequence[LinkSample],
     return LinkFit(link=link, samples=tuple(samples), residual=resid)
 
 
-def _a13_missing(name: str):
-    return NotImplementedError(
-        f"{name} times collectives on the card to fit a link, which is "
-        "ROADMAP A13 (link calibration on the H100), not ported yet")
+def _mesh(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def _measure_collective(*args, **kwargs) -> float:
-    """Seconds of one timed collective (ROADMAP A13: raises)."""
-    raise _a13_missing("_measure_collective")
+def _measure_collective(shape: Union[int, Sequence[int]], schedule: str,
+                        per_rank_elems: int, repeats: int = 3,
+                        inner: int = 5, device="cuda") -> float:
+    """Best-of-``repeats`` mean seconds of ``inner`` all-reduces through the
+    IR lowering (``collectives.all_reduce``) of a rank-stacked ``[world,
+    per_rank_elems]`` f32 payload on ``device``, seeded as the reference
+    seeds its global array.  One untimed call first; the device is
+    synchronised before each clock reading."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import resolve_device
+    from . import collectives as C
+
+    dev = resolve_device(device)
+    shape = _mesh(shape)
+    world = math.prod(shape)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(per_rank_elems * world,)).astype(np.float32)).reshape(
+        world, per_rank_elems).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    C.all_reduce(x, schedule, shape)       # first call outside the timing
+    best = float("inf")
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            C.all_reduce(x, schedule, shape)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / inner)
+    return best
 
 
-def fit_link_params(*args, **kwargs) -> LinkFit:
-    """Time a (schedule × payload) grid of collectives and fit
-    ``LinkParams`` to it (ROADMAP A13: raises)."""
-    raise _a13_missing("fit_link_params")
+def fit_link_params(shape: Union[int, Sequence[int]],
+                    schedules: Sequence[str] = FIT_SCHEDULES,
+                    payload_elems: Sequence[int] = FIT_PAYLOAD_ELEMS,
+                    repeats: int = 3,
+                    mesh_contention: bool = True,
+                    min_devices: int = 8, device="cuda") -> LinkFit:
+    """Time a (schedule × payload) grid of the port's all-reduces over a
+    world of ``shape`` ranks (an int, or a mesh tuple) stacked on
+    ``device``, schedule-major, each payload rounded up to a multiple of
+    the world, and fit ``LinkParams`` to the measurements (named
+    ``fitted-<device type><world>``).  The world must hold at least
+    ``min_devices`` ranks."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    shape = _mesh(shape)
+    world = math.prod(shape)
+    if world < min_devices:
+        raise ValueError(
+            f"link calibration needs ≥{min_devices} ranks, have {world} "
+            f"(mesh {shape}); pass --devices")
+    samples: List[LinkSample] = []
+    for schedule in schedules:
+        for elems in payload_elems:
+            per_rank = ((elems + world - 1) // world) * world
+            secs = _measure_collective(shape, schedule, per_rank,
+                                       repeats=repeats, device=dev)
+            samples.append(LinkSample(schedule=schedule, shape=shape,
+                                      payload_bytes=per_rank * 4.0,
+                                      seconds=secs))
+    return fit_from_samples(samples, mesh_contention,
+                            name=f"fitted-{dev.type}{world}")
 
 
 # ---------------------------------------------------------------------------
@@ -232,18 +296,36 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", type=str, default="results/calibration.json",
-                    help="output JSON (default: results/calibration.json)")
+    ap.add_argument("--out", type=str, default=None,
+                    help="output JSON (default: results/calibration.json, "
+                         "or results/link_calibration.json with --links — "
+                         "the two modes write different schemas)")
     ap.add_argument("--links", action="store_true",
-                    help="fit LinkParams from timed collectives (ROADMAP "
-                         "A13: raises)")
+                    help="fit LinkParams from timed collectives instead of "
+                         "the Table-1 simulator parameters")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="the world for --links: ranks stacked on the one "
+                         "device")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --links times the collectives (default "
+                         "cuda; raises if CUDA is missing)")
     args = ap.parse_args(argv)
     if args.links:
-        raise _a13_missing("--links")
+        fit = fit_link_params(args.devices, device=args.device)
+        print(fit.describe())
+        out = args.out or "results/link_calibration.json"
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"link": dataclasses.asdict(fit.link),
+                       "residual": fit.residual,
+                       "samples": [dataclasses.asdict(s)
+                                   for s in fit.samples]}, f, indent=2)
+        return
     best_p, best_loss = search(args.iters, args.seed)
     print(report(best_p))
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    out = args.out or "results/calibration.json"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
         json.dump({"params": dataclasses.asdict(best_p), "loss": best_loss}, f,
                   indent=2)
 

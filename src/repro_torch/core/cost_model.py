@@ -13,9 +13,9 @@ Carries the reference's two analytic parameter sets:
 
 ``TPU_V5E_ICI`` stays the autotuner's default link so the port's picks
 equal the reference's.  It is a TPU's analytic parameter set, NOT a model
-of the H100 or of its NVLink: no number here was measured on the card, and
-calibrating a link on it (``core.calibrate.fit_link_params``) is ROADMAP
-A13.
+of the H100 or of its NVLink: no number here was measured on the card.
+``core.calibrate.fit_link_params`` (the train CLI's ``--calibrate``) fits
+a link to collectives timed on the device instead.
 
 The model prices the schedules implemented in ``core/collectives.py``; the
 autotuner (``core/autotune.py``) ranks schedules and codecs with it.

@@ -9,8 +9,9 @@ reference's exactly for the same config and seed.
   * background prefetch (thread + queue).
 
 ``reshard_for_shares`` lays a batch out for the trainer's uneven
-per-rank micro-batch ``shares=``.  Frontend embeddings come with the
-frontend architectures.
+per-rank micro-batch ``shares=``.  Frontend architectures get stub
+embeddings (``frontend``, f32 [B, Tf, Df], unit-normalised rows) drawn
+from the same generator after the tokens.
 """
 
 from __future__ import annotations
@@ -77,10 +78,6 @@ class SyntheticLM:
     def __init__(self, cfg: ArchConfig, dcfg: DataConfig):
         if dcfg.global_batch % dcfg.num_hosts:
             raise ValueError("global_batch must divide across hosts")
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: frontend batches come with the frontend "
-                "architectures, not ported yet (ROADMAP A11)")
         self.cfg = cfg
         self.dcfg = dcfg
         self.local_batch = dcfg.global_batch // dcfg.num_hosts
@@ -105,8 +102,15 @@ class SyntheticLM:
         cont = rng.random((B, T)) < 0.5
         nxt = (base[:, :-1] + self._shift) % v
         base[:, 1:][cont] = nxt[cont]
-        return {"tokens": base[:, :-1].astype(np.int32),
-                "labels": base[:, 1:].astype(np.int32)}
+        out = {"tokens": base[:, :-1].astype(np.int32),
+               "labels": base[:, 1:].astype(np.int32)}
+        if self.cfg.frontend:
+            emb = rng.standard_normal(
+                (B, self.cfg.frontend_tokens, self.cfg.frontend_dim)
+            ).astype(np.float32)
+            emb /= np.linalg.norm(emb, axis=-1, keepdims=True) + 1e-6
+            out["frontend"] = emb
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

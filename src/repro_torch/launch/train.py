@@ -3,12 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b-smoke \
       --device cpu --steps 8 --batch 4 --seq 64 --schedule auto --devices 4
 
-Every architecture the port serves trains here (the MTP, MoE and
-recurrent ones since slice 11; the log line prints their ``xent``,
-``aux`` and ``mtp``).  Port of ``repro.launch.train`` with the same
-flags, plus ``--device`` (default ``cuda``; a CUDA request without CUDA
-raises).  ``--devices N`` is the BSP world, held as N ranks stacked on
-the one device (default 1).
+Every architecture of the zoo trains here (the MTP, MoE and recurrent
+ones since slice 11, whose ``xent``, ``aux`` and ``mtp`` the log line
+prints; the frontend ones, paligemma-3b and musicgen-medium, since slice
+12, with stub frontend embeddings in each batch).  Port of
+``repro.launch.train`` with the same flags, plus ``--device`` (default
+``cuda``; a CUDA request without CUDA raises).  ``--devices N`` is the
+BSP world, held as N ranks stacked on the one device (default 1).
 Gradients are bucketed (``--bucket-mb``, or ``auto`` for the DP boundary
 search), reduce-scattered with the bucket's schedule (``--schedule``:
 fractal, ring, xy, naive, hierarchical, tree, or ``auto`` for the
@@ -22,8 +23,15 @@ from ``--seed``.  ``--checkpoint-dir`` saves the state every
 a run pointed at a directory that holds a checkpoint resumes from its
 latest one (it must have the same superstep layout).
 
+``--calibrate`` first times a grid of the port's collectives at the world
+``--devices`` gives, on the device, and fits the cost model's link
+parameters to them, so every "auto" pick is priced with the device's
+numbers instead of the reference's TPU link; the fit is written to
+``<checkpoint-dir>/link_calibration.json`` and reloaded on resume, so the
+bucket plan and the moment layout cannot move.
+
 Not ported yet, and refused: ``--schedule xla`` (the GSPMD step, ROADMAP
-A12), ``--calibrate`` (link calibration on the card, A13).
+A12).
 
 ``run(cfg, args)`` runs a parsed command line on a given config (e.g. one
 cut in depth); ``main`` parses, looks the config up and calls it.
@@ -63,8 +71,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "pick per bucket (default: uniform --compression, "
                          "EF only)")
     ap.add_argument("--calibrate", action="store_true",
-                    help="fit cost-model link params on the card (not "
-                         "ported: ROADMAP A13)")
+                    help="fit cost-model link params from collectives "
+                         "timed on the device before tuning")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="--no-overlap collapses bucketing back to one "
@@ -88,19 +96,54 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--schedule xla is the GSPMD train step, not ported yet "
             "(ROADMAP A12)")
-    if args.calibrate:
-        raise NotImplementedError(
-            "--calibrate times collectives on the card to fit the link, "
-            "not ported yet (ROADMAP A13)")
 
 
-def bsp_config(args):
-    """The ``BSPConfig`` a parsed command line asks for."""
+CALIBRATION_FILE = "link_calibration.json"
+
+
+def calibrated_link(args, dev, world: int):
+    """The link ``--calibrate`` asks for (None without it): reloaded from
+    ``<checkpoint-dir>/link_calibration.json`` when that exists — refitting
+    from fresh timings could move the bucket boundaries and invalidate the
+    checkpointed moment layout — else fitted on the largest power-of-two
+    world up to ``world`` on ``dev`` and written there, in the reference's
+    format ``{"link": asdict(link)}``."""
+    if not args.calibrate:
+        return None
+    import dataclasses
+    import json
+    import os
+    from repro_torch.core.cost_model import LinkParams
+    path = (os.path.join(args.checkpoint_dir, CALIBRATION_FILE)
+            if args.checkpoint_dir else None)
+    if path and os.path.exists(path):
+        with open(path) as f:
+            link = LinkParams(**json.load(f)["link"])
+        print(f"calibrate: reloaded {link.name} from {path}")
+        return link
+    if world < 2:
+        print("calibrate: skipped (needs ≥2 devices; pass --devices 8)")
+        return None
+    from repro_torch.core.calibrate import fit_link_params
+    fit = fit_link_params(1 << (world.bit_length() - 1), min_devices=2,
+                          device=dev)
+    print(fit.describe())
+    if path:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"link": dataclasses.asdict(fit.link)}, f, indent=2)
+    return fit.link
+
+
+def bsp_config(args, link=None):
+    """The ``BSPConfig`` a parsed command line asks for, pricing the
+    autotuner's picks with ``link`` (None: the default link)."""
     from repro_torch.core.bsp import BSPConfig
     return BSPConfig(sync_axes=("data",), schedule=args.schedule,
                      compression=args.compression,
                      fsync_level=args.fsync_level, bucket_mb=args.bucket_mb,
-                     overlap=args.overlap, bucket_codec=args.bucket_codec)
+                     overlap=args.overlap, bucket_codec=args.bucket_codec,
+                     link=link)
 
 
 def run(cfg, args):
@@ -123,9 +166,10 @@ def run(cfg, args):
     params = T.init_params(cfg, args.seed, device=dev)
     print(f"arch={cfg.name} layers={cfg.num_layers} device={dev} "
           f"world={world} params={count_params(cfg):,}")
+    link = calibrated_link(args, dev, world)
     step_fn, init_state = trainer.make_bsp_train_step(
-        cfg, acfg, bsp_config(args), world, grad_accum=args.grad_accum,
-        device=dev)
+        cfg, acfg, bsp_config(args, link), world,
+        grad_accum=args.grad_accum, device=dev)
     ckpt_meta = {"superstep_layout": init_state.superstep_layout}
     state, start = resume_or_init(args.checkpoint_dir, init_state(params),
                                   expect_meta=ckpt_meta)

@@ -10,15 +10,14 @@ reference so the parity tests compare like with like:
   * softmax and normalisers run in f32, activations in the param dtype;
   * attention is GQA-grouped (KV heads are never replicated in memory).
 
-Ported: what serving (slices 1, 3 and 10) and training (slices 2 and
-11) reach: the attention core, unchunked and with checkpointed query blocks
-(``chunk_q``, training lengths), the paged KV primitives and the
-contiguous cache write (``_cache_update``), GQA attention with rope or
-no positional encoding, MLA (multi-head latent attention with the
-absorbed-weight decode, slice 3), the gated MLPs and MoE (sort-based
-capacity dispatch, slice 3).  The online-softmax KV chunking of long
-inference prefill and sinusoidal positions raise
-``NotImplementedError``.
+Ported: the attention core, unchunked, with checkpointed query blocks
+(``chunk_q``, training lengths) and with the online softmax over key
+chunks (``chunk``, which no model path calls), the prefix-LM mask, the
+paged KV primitives and the contiguous cache write (``_cache_update``),
+GQA attention with rope, sinusoidal (``sinusoidal_pos``, added to the
+embeddings) or no positional encoding, MLA (multi-head latent attention
+with the absorbed-weight decode, slice 3), the gated MLPs and MoE
+(sort-based capacity dispatch, slice 3).
 
 The training forward runs under autograd and writes nothing in place.  The
 cache primitives update the cache IN PLACE (``paged_scatter``,
@@ -138,6 +137,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """[..., d_model] f32 table for integer ``positions`` [...]: the sines
+    of ``pos * 10000^(-i / half)`` then their cosines, computed in f32 as
+    the reference computes them."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
@@ -183,16 +194,19 @@ def _query_block(lo, hi, q_blk, pq_blk, k_full, v_full, pk_full, *,
 
 def gqa_attention(q, k, v, *, pos_q, pos_k, causal=True, window=None,
                   prefix_len=None, attn_cap=None, scale=None,
-                  chunk_q=None) -> torch.Tensor:
+                  chunk=None, chunk_q=None) -> torch.Tensor:
     """q: [B,Tq,Hq,Dk]  k: [B,Tk,Hkv,Dk]  v: [B,Tk,Hkv,Dv] → [B,Tq,Hq,Dv].
 
     ``chunk_q``: blocked attention for TRAINING lengths: query blocks of
     ``chunk_q`` rows, each reading only the keys its causal diagonal and
     window reach (static extents; assumes arange-aligned positions from
     0), checkpointed while gradients flow so the backward recomputes one
-    block's scores at a time.  Without it, scores for every (query, key)
-    pair at once.  The reference's online softmax over long-KV chunks
-    (inference prefill) is not ported yet.
+    block's scores at a time.  ``chunk``: an online softmax over key
+    chunks of ``chunk`` keys (a memory-lean forward; no model path calls
+    it): Tk is padded to whole chunks with zero keys at a far position,
+    which the causal mask hides (without ``causal`` they would enter the
+    softmax, as in the reference).  Without either, scores for every
+    (query, key) pair at once.
     """
     B, Tq, Hq, Dk = q.shape
     Hkv = k.shape[2]
@@ -232,6 +246,11 @@ def gqa_attention(q, k, v, *, pos_q, pos_k, causal=True, window=None,
         o = torch.cat(outs, dim=1).reshape(B, nq * C, Hq, Dv)
         return o[:, :Tq]
 
+    if chunk is not None and k.shape[1] > chunk:
+        return _online_softmax(qg, k, v, pos_q, pos_k, chunk, causal=causal,
+                               window=window, prefix_len=prefix_len,
+                               attn_cap=attn_cap).to(q.dtype)
+
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     s = softcap(s, attn_cap)
     s = s + _mask_bias(pos_q, pos_k, causal=causal, window=window,
@@ -239,6 +258,46 @@ def gqa_attention(q, k, v, *, pos_q, pos_k, causal=True, window=None,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return o.reshape(B, Tq, Hq, Dv)
+
+
+def _online_softmax(qg, k, v, pos_q, pos_k, chunk, *, causal, window,
+                    prefix_len, attn_cap):
+    """Attention of the grouped queries ``qg`` [B,Tq,Hkv,G,Dk] over key
+    chunks of ``chunk``: a running max ``m``, normaliser ``l`` and f32
+    accumulator, each chunk's scores rescaled by ``e^(m - m_new)``.
+    Returns [B,Tq,Hkv*G,Dv] f32."""
+    B, Tq, Hkv, G, _ = qg.shape
+    Tk, Dv = k.shape[1], v.shape[-1]
+    n_chunks = -(-Tk // chunk)
+    pad = n_chunks * chunk - Tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        pos_k = F.pad(pos_k, (0, pad), value=(2 ** 31 - 1) // 2)
+    dev = qg.device
+    m = torch.full((B, Hkv, G, Tq), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, G, Tq), device=dev)
+    acc = torch.zeros((B, Hkv, G, Tq, Dv), device=dev)
+    for j in range(n_chunks):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        k_j, v_j = k[:, sl], v[:, sl]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_j).float()
+        s = softcap(s, attn_cap)
+        s = s + _mask_bias(pos_q, pos_k[:, sl], causal=causal, window=window,
+                           prefix_len=prefix_len)[:, None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # a row that has seen no key keeps m_new == -inf: a finite proxy
+        # keeps exp() from seeing (-inf) - (-inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros((), device=dev))
+        corr = torch.exp(m - m_safe)
+        p = torch.exp(s - m_safe[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v.dtype), v_j).float()
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.movedim(-2, 1).reshape(B, Tq, Hkv * G, Dv)
 
 
 # ---------------------------------------------------------------------------
@@ -372,9 +431,7 @@ def apply_attention(p, cfg: ArchConfig, x, *, positions, kv_cache=None,
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_embed != "none":
-        raise NotImplementedError(
-            f"pos_embed {cfg.pos_embed!r} is not ported yet")
+    # "sinusoidal": the embeddings carry the positions (transformer._embed)
 
     if kv_cache is None:
         chunk_q = QUERY_CHUNK if T >= QUERY_CHUNK_THRESHOLD else None

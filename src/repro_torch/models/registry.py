@@ -5,9 +5,10 @@ Mirrors ``repro/models/registry.py``.  The port carries gemma2-2b (slices
 attention configs of slice 9 (qwen2.5-3b, phi4-mini-3.8b, granite-34b,
 qwen3-moe-235b-a22b) and the recurrent and hybrid configs of slice 10
 (xlstm-1.3b, jamba-v0.1-52b); each serves and trains (the MTP, MoE and
-recurrent ones since slice 11).  The two frontend ids of the reference
-are known here and raise ``NotImplementedError`` until the slice that
-ports frontends lands (ROADMAP A11).
+recurrent ones since slice 11).  Slice 12 adds the two frontend configs
+(paligemma-3b with its prefix-LM, musicgen-medium with sinusoidal
+positions), which train and decode at the model level; the serve engine
+refuses them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -33,11 +34,11 @@ ARCH_IDS: List[str] = [
     "jamba-v0.1-52b",
 ]
 
-# ids whose config (and layers) the port carries today
+# ids whose config (and layers) the port carries: all of them
 PORTED_IDS: List[str] = ["gemma2-2b", "deepseek-v3-671b", "qwen2.5-3b",
                          "phi4-mini-3.8b", "granite-34b",
                          "qwen3-moe-235b-a22b", "xlstm-1.3b",
-                         "jamba-v0.1-52b"]
+                         "jamba-v0.1-52b", "paligemma-3b", "musicgen-medium"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -51,8 +52,7 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if base not in PORTED_IDS:
         raise NotImplementedError(
-            f"arch {base!r} is not ported yet (a later slice of the port: "
-            f"the frontend architectures); ported: {PORTED_IDS}")
+            f"arch {base!r} is not ported yet; ported: {PORTED_IDS}")
     cfg = importlib.import_module(_module_name(base)).CONFIG
     return cfg.reduced() if smoke else cfg
 

@@ -9,17 +9,21 @@ layout.
 API (dense GQA models: slice 1 paged serving, slice 2 training; MLA and
 MoE models, DeepSeek-V3: slice 3 paged serving; the contiguous cache,
 recurrent (mamba, mLSTM, sLSTM) and hybrid stacks: slice 10 serving;
-training the MTP, MoE and recurrent models: slice 11):
+training the MTP, MoE and recurrent models: slice 11; the frontend
+models, trained and decoded at the model level: slice 12):
 
   init_params(cfg, seed=0, device=...)          -> params
-  forward(params, cfg, tokens)                  -> logits [B,T,V]
+  forward(params, cfg, tokens, frontend_embeds=None, positions=None)
+                                                -> logits [B,Tf+T,V]
   loss_fn(params, cfg, batch)                   -> (loss, metrics)
   set_remat(mode)                               (the training remat policy)
   init_cache(cfg, batch, max_len)               -> per-layer caches
   init_paged_cache(cfg, num_blocks, block_size) -> per-layer pools
   init_hybrid_cache(cfg, kv_batch=, kv_len=, rec_batch=)
                                                 -> per-layer caches
-  prefill(params, cfg, tokens, cache)           -> (last logits, cache, T)
+  prefill(params, cfg, tokens, cache, frontend_embeds=None)
+                                                -> (last logits, cache,
+                                                    Tf+T)
   decode_step(params, cfg, token, cache, offset, block_tables, ...)
                                                 -> (logits, cache)
   prefill_chunk(params, cfg, tokens, cache, offset, ...)
@@ -37,7 +41,13 @@ Training holds memory as the reference does: each scanned unit of
 "block"``), the recurrent scans keep only time-chunk boundary carries
 (``ssm.TIME_CHUNK``), and the loss is sequence-chunked (logits for 512
 tokens at a time, each chunk checkpointed), so a 256k-vocab train step
-never holds [B,T,V] logits.  Frontends and prefix-LM raise (ROADMAP A11).
+never holds [B,T,V] logits.
+
+Frontend models (paligemma-3b, musicgen-medium) take ``Tf`` stub
+embeddings [B, Tf, frontend_dim] (``batch["frontend"]`` in training),
+projected by ``frontend_proj`` and put before the token embeddings; with
+``cfg.prefix_lm`` the prefix attends bidirectionally.  The loss is taken
+over the text positions only.
 """
 
 from __future__ import annotations
@@ -90,10 +100,6 @@ def _check_ported(cfg: ArchConfig) -> None:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: unknown layer kind {kind!r}")
-    if cfg.frontend or cfg.prefix_lm:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends and prefix-LM are not ported yet "
-            "(ROADMAP A11)")
 
 
 def has_recurrent(cfg: ArchConfig) -> bool:
@@ -325,6 +331,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"
     if not cfg.tie_embeddings:
         params["head"] = L._init_dense(D, V, scale=1.0 / math.sqrt(D),
                                        dtype=dt, device=dev, generator=gen)
+    if cfg.frontend:
+        params["frontend_proj"] = L._init_dense(
+            cfg.frontend_dim or D, D, dtype=dt, device=dev, generator=gen)
     params["layers"] = [init_block(cfg, kind, device=dev, generator=gen)
                         for kind in cfg.layer_pattern]
     if cfg.mtp_depth:
@@ -343,11 +352,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ArchConfig, tokens):
+def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None,
+           positions=None):
+    """Token embeddings [B,T,D], after the projected frontend embeddings
+    [B,Tf,D] when given, plus the sinusoidal table for ``positions`` (1-D,
+    broadcast over rows, or [B,T]; default 0..Tf+T-1) when the model uses
+    it."""
     h = F.embedding(tokens, params["embed"])
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
+    if cfg.frontend and frontend_embeds is not None:
+        pre = L.dense(params["frontend_proj"], frontend_embeds.to(h.dtype))
+        h = torch.cat([pre, h], dim=1)
+    if cfg.pos_embed == "sinusoidal":
+        if positions is None:
+            positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                     device=h.device)
+        h = h + L.sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
     return h
+
+
+def _prefix_len(cfg: ArchConfig):
+    """The bidirectional prefix of a prefix-LM (None: causal throughout)."""
+    return cfg.frontend_tokens if cfg.prefix_lm else None
 
 
 def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
@@ -409,14 +436,19 @@ def _head(params, cfg: ArchConfig, h):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg: ArchConfig, tokens):
-    """Full-sequence logits [B,T,V] f32 (small vocab / small T only —
-    training uses ``loss_fn``, which chunks the head)."""
+def forward(params, cfg: ArchConfig, tokens, frontend_embeds=None,
+            positions=None):
+    """Full-sequence logits [B,Tf+T,V] f32 (small vocab / small T only —
+    training uses ``loss_fn``, which chunks the head).  ``positions``
+    reach the attention layers only; the sinusoidal table is taken at
+    0..Tf+T-1, as the reference's."""
     _check_ported(cfg)
-    T = tokens.shape[1]
-    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
-    h = _embed(params, cfg, tokens)
-    h, _, _ = _run_segments(params, cfg, h, positions=positions)
+    h = _embed(params, cfg, tokens, frontend_embeds)
+    if positions is None:
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+    h, _, _ = _run_segments(params, cfg, h, positions=positions,
+                            prefix_len=_prefix_len(cfg))
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _head(params, cfg, h)
 
@@ -454,19 +486,25 @@ def _chunked_xent(params, cfg: ArchConfig, h, labels, mask):
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
-    """batch: {tokens [B,T], labels [B,T]} (integer tensors); labels < 0
-    are masked.  Returns (loss, metrics) as the reference's: metrics
+    """batch: {tokens [B,T], labels [B,T]} (integer tensors), and for
+    frontend models {frontend [B,Tf,Df]} (f32); labels < 0 are masked and
+    the loss is taken over the text positions.  Returns (loss, metrics)
+    as the reference's: metrics
     {"xent", "aux"} (aux is the MoE balance loss, summed over blocks),
     and "mtp" (the MTP modules' summed cross-entropy) for MTP models;
     loss = xent + mtp_loss_weight * mtp / mtp_depth + 0.01 * aux (the aux
     term for MoE stacks only)."""
     _check_ported(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
-    T = tokens.shape[1]
-    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
-    h = _embed(params, cfg, tokens)
-    h, _, aux = _run_segments(params, cfg, h, positions=positions)
+    frontend = batch.get("frontend")
+    h = _embed(params, cfg, tokens, frontend)
+    positions = torch.arange(h.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    h, _, aux = _run_segments(params, cfg, h, positions=positions,
+                              prefix_len=_prefix_len(cfg))
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    if cfg.frontend and frontend is not None:
+        h = h[:, cfg.frontend_tokens:]                  # the text positions
     mask = (labels >= 0).float()
     loss = _chunked_xent(params, cfg, h, torch.clamp(labels, min=0), mask)
     metrics = {"xent": loss, "aux": aux}
@@ -504,15 +542,17 @@ def loss_fn(params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor, Dict]:
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, cfg: ArchConfig, tokens, cache):
-    """Fill the cache with the prompt [B,T] from position 0 (the wave
-    oracle's batch prefill); returns (logits [B,1,V] of the last position,
-    cache, T)."""
-    B, T = tokens.shape
+def prefill(params, cfg: ArchConfig, tokens, cache, frontend_embeds=None):
+    """Fill the cache with the prompt [B,T], after the frontend embeddings
+    [B,Tf,Df] when given, from position 0 (the wave oracle's batch
+    prefill; a frontend model's decode); returns (logits [B,1,V] of the
+    last position, cache, Tf+T)."""
+    h = _embed(params, cfg, tokens, frontend_embeds)
+    T = h.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
-    h = _embed(params, cfg, tokens)
     h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
-                                  caches=cache, offset=0)
+                                     caches=cache, offset=0,
+                                     prefix_len=_prefix_len(cfg))
     h_last = L.rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _head(params, cfg, h_last), new_caches, T
 
@@ -542,7 +582,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, offset,
     update_mask = None
     if active is not None:
         update_mask = torch.as_tensor(active, device=dev).reshape(B, 1)             .to(torch.bool)
-    h = _embed(params, cfg, token)
+    h = _embed(params, cfg, token, positions=positions)
     h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
                                   block_tables=block_tables,
@@ -581,7 +621,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, offset,
     update_mask = None
     if valid is not None:
         update_mask = (ar < int(valid))[None, :].expand(B, T)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, positions=positions)
     h, new_caches, _ = _run_segments(params, cfg, h, positions=positions,
                                   caches=cache, offset=off,
                                   block_tables=block_tables,

@@ -200,6 +200,10 @@ def _combine(s, e, m_total: int) -> torch.Tensor:
     return ts.add_(te).div_(torch.tensor(float(m_total), device=ts.device))
 
 
+# what a step reads of a host batch: every other key is dropped
+BATCH_KEYS = ("tokens", "labels", "frontend")
+
+
 def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
     rows = next(iter(batch.values())).shape[0]
     if rows % n:
@@ -217,8 +221,9 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
     held on one device.  Returns ``(step_fn, init_state)``:
     ``init_state(params) -> BSPTrainState`` and ``step_fn(state, batch) ->
     (state, metrics)``, where ``batch`` holds the GLOBAL batch (``tokens``,
-    ``labels``, ``[B, T]`` integers; rank r takes rows
-    ``[r·B/W, (r+1)·B/W)``) and metrics the world-mean ``loss``, ``xent``,
+    ``labels``, ``[B, T]`` integers, and for frontend models ``frontend``,
+    ``[B, Tf, Df]`` f32; rank r takes rows ``[r·B/W, (r+1)·B/W)`` of each)
+    and metrics the world-mean ``loss``, ``xent``,
     ``aux`` (and ``mtp`` for MTP models) and the ``lr`` as f32 scalars.  ``init_state.superstep_layout``
     is the reference's moment-layout tag."""
     if grad_accum < 1:
@@ -348,7 +353,7 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
         leaves = reference_leaves(state.params, cfg)
         flat_params = [t for leaf in leaves for t in leaf.parts]
         batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("tokens", "labels")}
+                 for k in BATCH_KEYS if k in batch}
 
         # --- compute: every rank's gradients in the bucket layout
         loss, metrics, g_parts = (shares_grads if shares is not None

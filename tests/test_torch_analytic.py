@@ -14,8 +14,8 @@ calibration) and the Table 1 entry point, all ``==`` the reference.
     replay of every barrier and all-reduce program, a bucket pipeline,
     the FractalSync event model under skew, the scaling sweep;
   * the area model; ``fit_from_samples`` on fixed samples and the
-    simulator-parameter search's pieces; the collective timing of
-    ``fit_link_params`` raises, naming ROADMAP A13;
+    simulator-parameter search's pieces (the timed ``fit_link_params``
+    is ``tests/test_torch_calibrate.py``'s);
   * ``python -m repro_torch.launch.table1`` prints the pinned cycles.
 """
 
@@ -309,10 +309,3 @@ def test_simulator_search_pieces_match_reference():
     assert nb == jnb and len(nb) > 8
     assert CAL.report(CAL.DEFAULT_PARAMS) == JCAL.report(JCAL.DEFAULT_PARAMS)
 
-
-def test_collective_timing_waits_for_a13():
-    for fn in (CAL._measure_collective, CAL.fit_link_params):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn()
-    with pytest.raises(NotImplementedError, match="A13"):
-        CAL.main(["--links"])

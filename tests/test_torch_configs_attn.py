@@ -20,8 +20,8 @@ qk-norm with the softmax router, ``norm_topk`` and no shared expert
   same metrics summary, with an EOS whose first occurrence in a greedy
   output is at index >= 1 (ROADMAP C1: random-init smoke models repeat
   their first token).
-* ``loss_fn`` refuses a frontend or prefix-LM config (ROADMAP A11);
-  training qwen3-moe is ``tests/test_torch_train_moe.py``'s.
+* Training qwen3-moe is ``tests/test_torch_train_moe.py``'s; the
+  frontend and prefix-LM configs are ``tests/test_torch_frontend.py``'s.
 """
 
 import dataclasses
@@ -195,17 +195,3 @@ def test_engine_token_identical_with_eos(arch):
     first = out[rid].index(eos)
     assert first >= 1 and len(out[rid]) == first + 1
 
-
-@pytest.mark.parametrize("field", ["frontend", "prefix_lm"])
-def test_loss_fn_refuses_frontends_and_prefix_lm(field):
-    """Training MTP, MoE and recurrent models is ported (slice 11:
-    ``tests/test_torch_train_moe.py``, ``test_torch_train_recurrent.py``);
-    what ``loss_fn`` still refuses is the frontend archs' input (A11)."""
-    cfg = R.get_config("qwen3-moe-235b-a22b-smoke")
-    params = T.init_params(cfg, 0, device="cpu")
-    cfg = dataclasses.replace(
-        cfg, **{field: "vision" if field == "frontend" else True})
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-             "labels": torch.zeros(1, 4, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.loss_fn(params, cfg, batch)

@@ -85,6 +85,48 @@ def test_rope_freqs_equal_the_reference_and_are_computed_once(
     assert L.rope_freqs(head_dim, theta, device="cpu") is first
 
 
+# (causal, window, softcap, prefix_len) of the key-chunked cases
+CHUNK_CASES = [(True, None, None, None), (True, 5, 50.0, None),
+               (True, None, None, 6), (True, 4, 30.0, 10),
+               (False, None, None, None)]
+
+
+@pytest.mark.parametrize("causal,window,cap,prefix", CHUNK_CASES)
+def test_gqa_attention_key_chunks(causal, window, cap, prefix):
+    """``chunk=``: the online softmax over key chunks of 8 with a ragged
+    Tk of 21 (the last chunk padded by 3 keys at a far position) against
+    the reference's within 1e-5; with ``causal`` the padded keys stay
+    masked, so it equals the unchunked attention over the 21 real keys.
+    Row 1's first query sits before every key and, without a prefix, sees
+    none: both packages give it zeros.  Without ``causal`` the padded
+    keys enter the softmax in both packages (their position is masked
+    only by the causal test), so only the parity is held there."""
+    rng = np.random.default_rng(3)
+    B, Tq, Tk, Hq, Hkv, D = 2, 5, 21, 4, 2, 16
+    q = rng.standard_normal((B, Tq, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Tk, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Tk, Hkv, D)).astype(np.float32)
+    pq = np.array([[16, 17, 18, 19, 20], [2, 5, 9, 14, 20]], np.int32)
+    pk = np.arange(3, 3 + Tk, dtype=np.int32)[None].repeat(B, 0)
+    kw = dict(causal=causal, window=window, attn_cap=cap, prefix_len=prefix)
+    got = L.gqa_attention(*map(torch.from_numpy, (q, k, v)),
+                          pos_q=torch.from_numpy(pq),
+                          pos_k=torch.from_numpy(pk), chunk=8, **kw)
+    want = JL.gqa_attention(*map(jnp.asarray, (q, k, v)),
+                            pos_q=jnp.asarray(pq), pos_k=jnp.asarray(pk),
+                            chunk=8, **kw)
+    assert got.shape == (B, Tq, Hq, D)
+    _close(got, want)
+    if causal:
+        plain = L.gqa_attention(*map(torch.from_numpy, (q, k, v)),
+                                pos_q=torch.from_numpy(pq),
+                                pos_k=torch.from_numpy(pk), **kw)
+        if prefix is None:
+            assert not got[1, 0].any()           # sees no key: zeros
+            plain[1, 0] = 0.0                    # (the plain softmax: NaN)
+        _close(got, plain)
+
+
 @pytest.mark.parametrize("window,cap", [(None, None), (3, 50.0)])
 def test_gqa_attention_unchunked(window, cap):
     rng = np.random.default_rng(1)

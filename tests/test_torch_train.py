@@ -34,8 +34,10 @@
       - losses of steps 1-2: atol 1e-4 (they follow the params; measured
         ~1e-6).
   * the CLI on ``--device cpu`` (a forced non-fractal schedule and each
-    auto value among its runs), and its refusals (``--checkpoint-dir``
-    runs since slice 9: ``tests/test_torch_checkpoint.py``).
+    auto value among its runs), and its refusal of ``--schedule xla``
+    (``--checkpoint-dir`` runs since slice 9:
+    ``tests/test_torch_checkpoint.py``; ``--calibrate`` since slice 12:
+    ``tests/test_torch_calibrate.py``).
 
 The card's own test of the step is marked ``cuda`` and skips here.
 """
@@ -356,7 +358,6 @@ def test_cli_trains_on_cpu(capsys):
 
 @pytest.mark.parametrize("extra,match", [
     (["--schedule", "xla"], "A12"),
-    (["--calibrate"], "A13"),
 ])
 def test_cli_refuses_unported_flags(extra, match):
     with pytest.raises(NotImplementedError, match=match):
