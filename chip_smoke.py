@@ -226,6 +226,28 @@ The quickest proof that the port starts on the card.  Phases, in order
                 B1/B2 launches = steps x buckets with the codec x 2;
                 every codec bucket of the calibrated plan reduce-scattered
                 bit for bit through the kernels and the plain versions;
+  slice 13 (the sharding surface: meshes of virtual devices on the card):
+  4m. mesh    — after phase 4: phase 3's and 3c's traffic with
+                ``--devices 4`` (the slot batch sharded over a ("data",)
+                mesh): every request token-identical to phases 3 and 3c,
+                B7's launches and merges equal to phase 3's; ``--max-slots
+                6 --devices 4`` raises the reference's ``ValueError``; one
+                paged decode step profiled without and with the serving
+                policy ``make_decode_step`` sets (host ms, device ms, idle
+                share; the hooks a step calls and each one's host cost);
+  5l. gspmd   — after phase 5c: ``launch.train.run --schedule xla
+                --devices 4`` on gemma2-2b at full width and depth, no cut
+                (``GSPMD_ARGS``; memory reckoned before the run), 3 steps:
+                finite losses, step time, tokens/s, peak memory, a
+                profiled step's idle share; then one step at phase 5's 8
+                layers, whose step-0 loss must be within
+                ``GSPMD_LOSS_ATOL`` of phase 5's fractal step-0 loss;
+  5m. tiers   — the reference's ``bsp_equivalence_check`` on the card:
+                gemma2-2b at 2 layers (``EQUIV_CUT``), world 4,
+                ``grad_clip=0``, 2 steps each of the GSPMD step and the
+                fractal superstep with no codec: losses within
+                ``EQUIV_LOSS_ATOL``, every param element within 2·lr + one
+                bf16 ulp a step of the other tier's; the largest gaps;
   9. an earlier line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -2667,7 +2689,8 @@ def _span_us(events):
 def _profile_steps(torch, cfg, dev, step, chunk, kernel=True):
     """Where a full-width step's time goes: host-clock time of one prefill
     chunk and one decode step (``chunk()``, ``step()``; synchronised), and
-    the profiler's device time per op for the decode step: with
+    the profiler's device time per op for the decode step (returns the
+    decode step's host ms and device ms): with
     ``kernel``, the paged decode kernels' share (B8 for MLA models, B7
     otherwise; split kernel and merge, whose names both carry the op's);
     for MoE models the expert GEMMs' share (``aten::bmm`` over the
@@ -2734,6 +2757,7 @@ def _profile_steps(torch, cfg, dev, step, chunk, kernel=True):
               f"{experts / max(busy, 1e-9) * 100:.1f}% of its device time")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12, max_name_column_width=40))
+    return step_ms, busy
 
 
 def phase_serve_soak(torch, ops, cfg, dev):
@@ -4187,6 +4211,308 @@ def phase_calibrate(torch, tops, tref, codecs, cfg, dev, argv=None):
     return {c: c1[c] + c2[c] for c in c1}
 
 
+# Slice 13: the sharding surface.  [5l] the GSPMD step (--schedule xla) at
+# gemma2-2b's full published width and depth, no cut (26 layers,
+# 2,614,341,888 params).  Reckoned before the run: bf16 params and grads
+# 2 x 5.23 GB and f32 AdamW moments 20.91 GB (12 B a parameter,
+# ``adamw.optimizer_bytes_per_param``), 31.4 GB, plus the global batch's
+# activations under block remat (13 unit boundaries of [8, 1024, 2304]
+# bf16, one unit's recompute, the loss's 512-token logit chunks of
+# [8, 512, 256000] f32, 4.2 GB each) and the update's chunked temporaries
+# (``adamw.UPDATE_CHUNK``): about 45-55 GB, so the card holds it without a
+# cut.  The batch, seed and lr of phase 5 (8 x 1024, world 4 as the mesh's
+# data axis), 3 steps.
+GSPMD_ARGS = ["--arch", "gemma2-2b", "--device", "cuda", "--devices", "4",
+              "--steps", "3", "--batch", "8", "--seq", "1024", "--schedule",
+              "xla", "--lr", "3e-4", "--seed", "0"]
+# The GSPMD step's step-0 loss against phase 5's fractal step-0 loss on the
+# same params (8 layers, seed 0) and batch, both bf16.  Fixed before the
+# first run on the card: the GSPMD step runs the 8 rows as one batch, the
+# fractal step 4 ranks of 2 rows, so every bf16 GEMM and attention
+# rounds at other shapes; the loss is the f32 mean of 8,192 per-token
+# cross-entropies of ~12.5 (ln 256000 = 12.45), which averages that noise
+# down to ~1e-3 (phase 5b's step 0 equals phase 5's bit for bit because
+# the shapes are the same).
+GSPMD_LOSS_ATOL = 2e-2
+# [5m] Tier A against Tier B on the card (the reference's
+# ``tests/bsp_equivalence_check.py``): gemma2-2b cut to 2 layers (745.6 M
+# params), world 4, ``grad_clip=0`` (Tier B clips per shard in the
+# reference), 2 steps of each on the same params and batches.  Losses:
+# step 0 as ``GSPMD_LOSS_ATOL``, step 1 follows the params, twice that.
+# Params: AdamW's m̂/√v̂ turns a near-zero gradient's sign (float noise
+# between the tiers) into a whole step of lr (C10), so 2·lr a step taken,
+# plus the bf16 rounding of each tier's update: one bf16 ulp of the
+# element a step (at |p| ~ 1 that is 2^-8 = 3.9e-3, 6.5 x 2·lr).  At step
+# 0 that bound is exact (|m̂/√v̂| <= 1, each rounding <= ulp/2); at step 1
+# |m̂/√v̂| may reach 1.0004 for betas (0.9, 0.95) (Cauchy-Schwarz) and the
+# decoupled decay adds lr·wd (3e-5) of the gap, so the bound carries a
+# factor EQUIV_SLACK.
+EQUIV_CUT = dict(num_layers=2, layer_pattern=("local", "global"))
+EQUIV_STEPS = 2
+EQUIV_LOSS_ATOL = (GSPMD_LOSS_ATOL, 2 * GSPMD_LOSS_ATOL)
+EQUIV_SLACK = 1.001
+# [4m] phase 3's and 3c's gemma2-2b traffic at full width with the slot
+# batch sharded over a ("data",) mesh of 4 virtual devices: token-identical
+# to phases 3 and 3c, with phase 3's B7 launches; then one paged decode
+# step with and without the serving policy ``make_decode_step`` sets (the
+# hooks' host cost), and a slot pool the mesh does not divide.
+MESH_DEVICES = 4
+
+
+def _bf16_ulp(torch, x):
+    """One bf16 ulp of each element of ``x`` (f32): 2^(e - 8) for |x| in
+    [2^(e-1), 2^e)."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def phase_gspmd_train(torch, cfg, cut, first_loss, argv=None):
+    """[5l] The slice's main path: ``launch.train.run`` with ``--schedule
+    xla`` on ``cfg`` (the full model): finite losses for every step, the
+    step time, tokens/s and peak memory; then three more steps for the idle
+    share (``_profiled_steps``); then one step on ``cut`` (phase 5's 8
+    layers), whose step-0 loss must be within ``GSPMD_LOSS_ATOL`` of
+    ``first_loss`` (phase 5's fractal step 0; not checked when None).
+    Returns ``(step seconds, step-0 loss of the cut)``."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import act_sharding as ACT
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_params
+    from repro_torch.optim.adamw import AdamWConfig, optimizer_bytes_per_param
+    args = train_cli.parse_args(argv or GSPMD_ARGS)
+    dev = torch.device(args.device)
+    n = count_params(cfg)
+    acfg = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=1)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, {n:,} params; reckoned "
+          f"{optimizer_bytes_per_param(acfg) * n / 1e9:.2f} GB of params, "
+          f"grads and f32 moments ({optimizer_bytes_per_param(acfg)} B a "
+          f"parameter) before activations; mesh ({args.devices}, 1), the "
+          f"global batch {args.batch} x {args.seq} in one step")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = train_cli.run(cfg, args)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if out["engine"] is not None or len(losses) != args.steps or \
+            not np.all(np.isfinite(losses)):
+        raise AssertionError(f"gspmd: losses {losses}, engine "
+                             f"{out['engine']}")
+    tokens = args.batch * args.seq
+    for h in hist:
+        print(f"  gspmd step {h['step']}: loss {h['loss']:.4f}, "
+              f"{h['sec']:.3f} s, {tokens / h['sec']:.0f} tokens/s")
+    print(f"  gspmd: peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} "
+          f"GB)")
+    del out
+    gc.collect()
+    secs = [h["sec"] for h in hist[1:]]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        params = T.init_params(cfg, args.seed, device=dev)
+        step, state = train_cli.gspmd_state(cfg, args, params, dev, acfg)
+        del params
+        data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                           seq_len=args.seq, seed=args.seed))
+        _, _, wall, busy, prof = _profiled_steps(torch, step, state, data,
+                                                 dev, "gspmd")
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=10,
+                                        max_name_column_width=40))
+        del state, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = type(args)(**{**vars(args), "steps": 1})
+    loss0 = train_cli.run(cut, one)["history"][0]["loss"]
+    ACT.clear_policy()
+    if first_loss is not None:
+        gap = abs(loss0 - first_loss)
+        print(f"  gspmd step-0 loss at {cut.num_layers} layers {loss0!r}, "
+              f"phase 5's fractal step-0 loss {first_loss!r} (the same "
+              f"params and batch): |diff| {gap:.4e} (bf16 bound "
+              f"{GSPMD_LOSS_ATOL})")
+        if not gap <= GSPMD_LOSS_ATOL:
+            raise AssertionError(f"gspmd step-0 loss {loss0} is {gap} from "
+                                 f"the fractal step's {first_loss}")
+    return secs, loss0
+
+
+def _param_snapshot(torch, params, cfg):
+    from repro_torch.weights import reference_leaves
+    return [(leaf.path, [t.detach().clone() for t in leaf.parts])
+            for leaf in reference_leaves(params, cfg)]
+
+
+def phase_tier_equivalence(torch, cfg, dev, argv=None):
+    """[5m] ``make_gspmd_train_step`` (Tier A) and ``make_bsp_train_step``
+    with the fractal schedule and no codec (Tier B) on the same params and
+    batches, ``EQUIV_STEPS`` steps each, ``grad_clip=0``: each step's
+    losses within ``EQUIV_LOSS_ATOL`` and every param element within
+    (steps taken) x (2·lr + one bf16 ulp of it) x ``EQUIV_SLACK`` of the
+    other tier's.
+    Prints the largest gaps; returns the largest param gap over its
+    bound."""
+    from repro_torch.core.bsp import BSPConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import act_sharding as ACT
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init
+    from repro_torch.runtime import trainer
+    from repro_torch.runtime.elastic import reshard_state
+    args = train_cli.parse_args(argv or TRAIN_ARGS)
+    world = args.devices
+    acfg = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=1,
+                       grad_clip=0.0)
+    data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                       seq_len=args.seq, seed=args.seed))
+    mesh = make_mesh((world, 1), ("data", "model"), device=dev)
+    step_a, (pspec, _, _) = trainer.make_gspmd_train_step(cfg, mesh, acfg)
+    params = T.init_params(cfg, args.seed, device=dev)
+    params = reshard_state(params, mesh,
+                           SH.port_param_specs(cfg, params, pspec))
+    state_a = trainer.GSPMDTrainState(params, init(params, acfg), cfg)
+    del params
+    step_b, init_b = trainer.make_bsp_train_step(
+        cfg, acfg, BSPConfig(schedule="fractal"), world, device=dev)
+    state_b = init_b(T.init_params(cfg, args.seed, device=dev))
+    worst = 0.0
+    for s in range(EQUIV_STEPS):
+        state_a, m_a = step_a(state_a, data.batch(s))
+        state_b, m_b = step_b(state_b, data.batch(s))
+        la, lb = m_a["loss"].item(), m_b["loss"].item()
+        gap_l = abs(la - lb)
+        bound = (s + 1) * 2 * args.lr
+        big, where, ratio = 0.0, "", 0.0
+        for (path, pa), (_, pb) in zip(_param_snapshot(torch, state_a.params,
+                                                       cfg),
+                                       _param_snapshot(torch, state_b.params,
+                                                       cfg)):
+            for a, b in zip(pa, pb):
+                a, b = a.float(), b.float()
+                d = (a - b).abs()
+                lim = (bound + (s + 1) * _bf16_ulp(
+                    torch, torch.maximum(a.abs(), b.abs()))) * EQUIV_SLACK
+                r = (d / lim).max().item()
+                if d.max().item() > big:
+                    big, where = d.max().item(), path
+                ratio = max(ratio, r)
+        worst = max(worst, ratio)
+        print(f"  step {s}: loss xla {la!r}, fractal {lb!r}, |diff| "
+              f"{gap_l:.4e} (bound {EQUIV_LOSS_ATOL[s]}); params: largest "
+              f"|xla - fractal| {big:.4e} at {where}, largest gap / its "
+              f"bound ({s + 1} x (2·lr {2 * args.lr:g} + one bf16 ulp) x "
+              f"{EQUIV_SLACK}) {ratio:.3f}")
+        if not gap_l <= EQUIV_LOSS_ATOL[s]:
+            raise AssertionError(f"step {s}: losses {la} and {lb}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"step {s}: a param {ratio:.3f} x its "
+                                 "bound from the other tier's")
+    ACT.clear_policy()
+    return worst
+
+
+def phase_mesh_serve(torch, ops, cfg, runs, max_slots_cfg=None):
+    """[4m] ``launch.serve.run`` with ``--devices MESH_DEVICES`` for each
+    ``(argv, earlier out, (launches, merges))`` of ``runs`` (phase 3's and
+    3c's): every request token-identical to the earlier run's, and B7's
+    launches and merges equal to its.  Then a slot pool of 6 on the mesh
+    (on ``max_slots_cfg``, a cut of ``cfg``) must raise the reference's
+    ``ValueError``.  Returns each run's (launches, merges)."""
+    from repro_torch.launch import serve as serve_cli
+    got = []
+    for argv, earlier, want in runs:
+        out = {}
+        counts = phase_serve(torch, ops, cfg, argv + [
+            "--devices", str(MESH_DEVICES)], out=out)
+        same = sum(out["results"][r] == earlier["results"][r]
+                   for r in earlier["results"])
+        n = len(earlier["results"])
+        print(f"  --devices {MESH_DEVICES} ({out['args'].kv_mode} cache): "
+              f"outputs token-identical to the unsharded run's for "
+              f"{same}/{n} requests; launches {counts}, the unsharded "
+              f"run's {want}")
+        if same != n or sorted(out["results"]) != sorted(earlier["results"]):
+            raise AssertionError(f"mesh serving: {same}/{n} requests "
+                                 "token-identical")
+        if counts != want:
+            raise AssertionError(f"mesh serving launches {counts}, the "
+                                 f"unsharded run's {want}")
+        got.append(counts)
+    bad = serve_cli.parse_args(runs[0][0] + ["--max-slots", "6", "--devices",
+                                             str(MESH_DEVICES)])
+    try:
+        serve_cli.run(max_slots_cfg or cfg, bad)
+    except ValueError as exc:
+        want = f"--max-slots 6 must divide across {MESH_DEVICES} devices"
+        if str(exc) != want:
+            raise AssertionError(f"max_slots error {exc!r}, want {want!r}")
+        print(f"  --max-slots 6 --devices {MESH_DEVICES}: ValueError "
+              f"{str(exc)!r}, as the reference's")
+    else:
+        raise AssertionError("--max-slots 6 --devices 4 did not raise")
+    return got
+
+
+def phase_mesh_decode(torch, cfg, dev, calls=100_000):
+    """[4m] One paged decode step of ``cfg`` profiled without an activation
+    policy (as phase 4) and with the one ``make_decode_step`` sets on a
+    (``MESH_DEVICES``, 1) ("data", "model") mesh (the reference's builders
+    read both axes): host ms, device ms, idle share of
+    each; the hooks a step calls, and each hook's host cost with and
+    without a policy.  Returns ((step ms, device ms) without, with)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import act_sharding as ACT
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import trainer
+    params = T.init_params(cfg, 1, device=dev)
+    cache, args, kw, chunk, _ = _decode_setup(torch, T, params, cfg, dev,
+                                              contiguous=False)
+    step = lambda: T.decode_step(params, cfg, *args, **kw)[0]
+    mesh = make_mesh((MESH_DEVICES, 1), ("data", "model"), device=dev)
+    x = torch.zeros(args[0].shape[0], 1, cfg.d_model, device=dev)
+    res, cost = [], []
+    for policy in (False, True):
+        ACT.clear_policy()
+        if policy:
+            trainer.make_decode_step(
+                cfg, mesh, args[0].shape[0],
+                kw["block_tables"].shape[1] * cache[0]["k"].shape[1])
+        print(f"  decode step with {'the' if policy else 'no'} activation "
+              f"policy{' of make_decode_step' if policy else ''}:")
+        res.append(_profile_steps(torch, cfg, dev, step, chunk))
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ACT.hidden(x)
+        cost.append((time.perf_counter() - t0) / calls * 1e6)
+    seen = [0]
+    plain = ACT._constrain
+
+    def counting(x, *spec):
+        seen[0] += 1
+        return plain(x, *spec)
+
+    ACT._constrain = counting
+    try:
+        with torch.inference_mode():
+            step()
+    finally:
+        ACT._constrain = plain
+        ACT.clear_policy()
+    (ms0, busy0), (ms1, busy1) = res
+    print(f"  act hooks: {seen[0]} calls a decode step; "
+          f"{cost[0]:.3f} us a call without a policy (one global check), "
+          f"{cost[1]:.3f} us with one (the reference's fixed spec); decode "
+          f"step {ms0:.2f} ms (idle {max(0.0, 1 - busy0 / ms0) * 100:.1f}%) "
+          f"without, {ms1:.2f} ms (idle "
+          f"{max(0.0, 1 - busy1 / ms1) * 100:.1f}%) with the policy")
+    return res
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel instantiation from ``-Xptxas -v``
     output: template arguments, registers, stack and spills."""
@@ -4448,7 +4774,8 @@ def main(argv=None) -> int:
     print(f"  schedules phase: {time.perf_counter() - t0:.1f} s")
 
     print("[3] serve gemma2-2b at full width", flush=True)
-    launches, merges = phase_serve(torch, ops, gemma, SERVE_ARGS)
+    paged3 = {}
+    launches, merges = phase_serve(torch, ops, gemma, SERVE_ARGS, out=paged3)
     gc.collect()
     torch.cuda.empty_cache()
     print("[3c] serve gemma2-2b at full width over the contiguous cache",
@@ -4472,6 +4799,24 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_decode_step(torch, gemma, dev, LOGIT_ATOL, contiguous=LOGIT_ATOL)
     print(f"  phase 4: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[4m] serve gemma2-2b at full width with the slot batch sharded "
+          f"over a mesh of {MESH_DEVICES} (--devices {MESH_DEVICES}): paged "
+          "and contiguous; one decode step with the serving policy",
+          flush=True)
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh_serve(
+        torch, ops, gemma,
+        [(SERVE_ARGS, paged3, (launches, merges)),
+         (CONTIG_SERVE_ARGS, cont, (contig_launches, 0))],
+        max_slots_cfg=train_config(TRAIN_FORCED_CUT))
+    del paged3
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh_decode(torch, gemma, dev)
+    print(f"  phase 4m: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4525,6 +4870,24 @@ def main(argv=None) -> int:
     print(f"[5c] train gemma2-2b ({cfg2.num_layers} of 26 layers) with a "
           f"forced non-fractal schedule", flush=True)
     phase_train_forced(torch, tops, cfg2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[5l] train gemma2-2b at full width ({gemma.num_layers} layers, "
+          "no cut) with the GSPMD step (--schedule xla --devices 4)",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_gspmd_train(torch, gemma, cfg8, first_losses["int8"])
+    print(f"  phase 5l: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eq_cfg = train_config(EQUIV_CUT)
+    print(f"[5m] Tier A (GSPMD) against Tier B (fractal) on the card: "
+          f"gemma2-2b ({eq_cfg.num_layers} layers), world 4, "
+          f"{EQUIV_STEPS} steps each", flush=True)
+    t0 = time.perf_counter()
+    phase_tier_equivalence(torch, eq_cfg, dev)
+    print(f"  phase 5m: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4637,6 +5000,9 @@ def main(argv=None) -> int:
         launches=launches, merge_launches=merges,
         qwen_launches=q_launches, qwen_merge_launches=q_merges,
         contiguous_launches=contig_launches, soak_launches=soak_launches,
+        mesh_launches=mesh_launches[0][0],
+        mesh_merge_launches=mesh_launches[0][1],
+        mesh_contiguous_launches=mesh_launches[1][0],
         jamba_launches=j_launches, jamba_merge_launches=j_merges,
         wave_identical=wave_same, xlstm_wave_identical=xl_same,
         shapes=KERNEL_SHAPES, max_abs_err=max_err, max_err=max_err,

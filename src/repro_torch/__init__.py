@@ -25,7 +25,12 @@ Ported so far, slice by slice:
      (``configs``), uneven micro-batch shares (``runtime.trainer``,
      ``data``), checkpoints (``checkpoint``, with its own msgpack codec)
      and fault tolerance (``runtime.chaos``, ``fault_tolerance``,
-     ``elastic``, ``loop``, ``soak``).
+     ``elastic``, ``loop``, ``soak``);
+  13. the sharding surface — ``launch.mesh`` (meshes of virtual devices
+     on one torch device), ``models.sharding``, ``models.act_sharding``,
+     the GSPMD tier of ``runtime.trainer`` (``--schedule xla``) with the
+     pytree AdamW, ``elastic.reshard_state`` and mesh-sharded serving
+     (``launch.serve --devices N``).
 Every Pallas kernel of the reference now has a counterpart here.  Whatever
 else is not ported raises ``NotImplementedError``.
 

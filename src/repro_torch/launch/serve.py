@@ -20,7 +20,10 @@ architecture serves: attention, MLA, recurrent (xlstm-1.3b) and hybrid
 contiguous``, the default) or the paged one, with recurrent layers on
 pooled state rows (``--rec-slots``).  ``--mode wave`` runs the
 wave-at-a-time oracle (``serve_waves``) over the contiguous cache.
-``--devices N > 1`` raises: multi-device serving is not ported.
+``--devices N`` shards the slot batch over a ("data",) mesh of N virtual
+devices on the one device, as the reference's (``max_slots`` must divide
+among them; in wave mode it is ignored, with a note); the outputs are the
+ones without it.
 Random-init params come from ``--seed``.  Prints the metrics report and
 the launch counts of the paged-attention kernels (GQA for attention
 layers, absorbed MLA for MLA layers; only the paged cache runs them).
@@ -85,8 +88,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mode", choices=("continuous", "wave"),
                     default="continuous")
     ap.add_argument("--devices", type=int, default=0,
-                    help="0 or 1: one card is one device (multi-device "
-                         "serving is not ported)")
+                    help="shard the slot batch over a mesh of N virtual "
+                         "devices on the one device (0: no mesh)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -96,15 +99,11 @@ def run(cfg, args: argparse.Namespace):
     (results {req_id: tokens}, metrics)."""
     if args.mode == "wave" and args.kv_mode == "paged":
         raise ValueError("--mode wave serves from the contiguous cache only")
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: one card is one device; "
-            "multi-device serving (torch.distributed) is not ported yet")
-
     import numpy as np
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.serve import (EngineConfig, Request, ServeEngine,
                                    parse_arrival_spec, serve_waves)
@@ -142,13 +141,22 @@ def run(cfg, args: argparse.Namespace):
         paged_kernel=args.paged_kernel,
         clock=args.clock)
 
+    mesh = None
+    if args.devices:
+        if args.mode == "wave":
+            print(f"note: --devices {args.devices} ignored in wave mode "
+                  "(the baseline runs unsharded)")
+        else:
+            mesh = make_mesh((args.devices,), ("data",), device=device)
+
     print(f"arch={cfg.name} device={device} mode={args.mode} "
           f"kv={args.kv_mode} requests={args.requests} "
           f"prompt={args.prompt_len} gen={args.gen}"
           f"{f'±{args.gen_spread}' if args.gen_spread else ''} "
           f"slots={args.max_slots} arrival={args.arrival}"
           + (f" block_size={args.block_size}" if args.kv_mode == "paged"
-             else ""))
+             else "")
+          + (f" devices={args.devices}" if args.devices else ""))
 
     counts = ("LAUNCHES", "MERGE_LAUNCHES", "MLA_LAUNCHES",
               "MLA_MERGE_LAUNCHES")
@@ -157,7 +165,7 @@ def run(cfg, args: argparse.Namespace):
         results, metrics = serve_waves(cfg, params, ecfg, requests)
         lowering = "wave: contiguous cache"
     else:
-        engine = ServeEngine(cfg, params, ecfg)
+        engine = ServeEngine(cfg, params, ecfg, mesh=mesh)
         print(f"slot-state plan: {engine.plan.describe()}"
               + (f" ({engine.rec.capacity} recurrent rows)"
                  if engine.rec is not None else ""))

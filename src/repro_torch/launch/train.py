@@ -1,4 +1,5 @@
-"""Training entry point: the FractalSync BSP superstep on one device.
+"""Training entry point: the FractalSync BSP superstep, or the GSPMD
+baseline, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b-smoke \
       --device cpu --steps 8 --batch 4 --seq 64 --schedule auto --devices 4
@@ -30,8 +31,17 @@ numbers instead of the reference's TPU link; the fit is written to
 ``<checkpoint-dir>/link_calibration.json`` and reloaded on resume, so the
 bucket plan and the moment layout cannot move.
 
-Not ported yet, and refused: ``--schedule xla`` (the GSPMD step, ROADMAP
-A12).
+``--schedule xla`` runs the GSPMD tier instead, as the reference's: the
+mesh ``(devices, 1)`` over ``("data", "model")`` (virtual devices on the
+one torch device, ``launch/mesh.py``), the params placed on its FSDP×TP
+specs, and ``trainer.make_gspmd_train_step``: ``loss_fn`` on the whole
+global batch, the pytree AdamW with the global-norm clip.  As in the
+reference, ``--bucket-*``, ``--compression``, ``--fsync-level``,
+``--calibrate`` and ``--grad-accum`` do nothing there, and the checkpoint
+carries no superstep layout.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b-smoke \
+      --device cpu --devices 4 --steps 3 --schedule xla
 
 ``run(cfg, args)`` runs a parsed command line on a given config (e.g. one
 cut in depth); ``main`` parses, looks the config up and calls it.
@@ -58,7 +68,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--schedule", default="fractal",
                     help="gradient schedule: fractal|ring|xy|naive|"
                          "hierarchical|tree, or auto (the autotuner's pick "
-                         "per bucket)")
+                         "per bucket); xla runs the GSPMD step")
     ap.add_argument("--compression", default="none")
     ap.add_argument("--fsync-level", type=int, default=None)
     ap.add_argument("--bucket-mb", type=_bucket_mb_arg, default=None,
@@ -80,8 +90,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="micro-batches accumulated per rank per superstep")
     ap.add_argument("--devices", type=int, default=0,
-                    help="BSP world: ranks stacked on the one device "
-                         "(0 → 1)")
+                    help="BSP world: ranks stacked on the one device; "
+                         "with --schedule xla the mesh's data axis (0 → 1)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save checkpoints here, and resume from the latest "
                          "one it holds")
@@ -89,13 +99,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if args.schedule == "xla":
-        raise NotImplementedError(
-            "--schedule xla is the GSPMD train step, not ported yet "
-            "(ROADMAP A12)")
 
 
 CALIBRATION_FILE = "link_calibration.json"
@@ -146,11 +149,30 @@ def bsp_config(args, link=None):
                      link=link)
 
 
+def gspmd_state(cfg, args, params, dev, acfg):
+    """The GSPMD tier of ``--schedule xla``: ``(step_fn, state)``, the
+    params placed on the mesh's specs (the reference's
+    ``device_put(params, named(mesh, pspec))``)."""
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim.adamw import init
+    from repro_torch.runtime import trainer
+    from repro_torch.runtime.elastic import reshard_state
+    mesh = make_mesh((args.devices or 1, 1), ("data", "model"), device=dev)
+    step_fn, (pspec, _ospec, bspec) = trainer.make_gspmd_train_step(
+        cfg, mesh, acfg)
+    params = reshard_state(params, mesh,
+                           SH.port_param_specs(cfg, params, pspec))
+    print(f"gspmd: mesh {describe(mesh)} (virtual devices on {dev}); batch "
+          f"{dict(bspec)}; the global batch in one step")
+    return step_fn, trainer.GSPMDTrainState(params, init(params, acfg), cfg)
+
+
 def run(cfg, args):
     """Train ``cfg`` as the parsed command line ``args`` asks.  Returns the
     loop's result: ``final_step``, ``history`` (per-step loss and wall
-    seconds) and the ``engine`` (bucket plan) of the run."""
-    _refuse_unported(args)
+    seconds) and the ``engine`` (bucket plan) of the run (None for
+    ``--schedule xla``)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
@@ -166,12 +188,18 @@ def run(cfg, args):
     params = T.init_params(cfg, args.seed, device=dev)
     print(f"arch={cfg.name} layers={cfg.num_layers} device={dev} "
           f"world={world} params={count_params(cfg):,}")
-    link = calibrated_link(args, dev, world)
-    step_fn, init_state = trainer.make_bsp_train_step(
-        cfg, acfg, bsp_config(args, link), world,
-        grad_accum=args.grad_accum, device=dev)
-    ckpt_meta = {"superstep_layout": init_state.superstep_layout}
-    state, start = resume_or_init(args.checkpoint_dir, init_state(params),
+    engine = None
+    if args.schedule == "xla":
+        step_fn, state = gspmd_state(cfg, args, params, dev, acfg)
+        ckpt_meta = {}
+    else:
+        link = calibrated_link(args, dev, world)
+        step_fn, init_state = trainer.make_bsp_train_step(
+            cfg, acfg, bsp_config(args, link), world,
+            grad_accum=args.grad_accum, device=dev)
+        ckpt_meta = {"superstep_layout": init_state.superstep_layout}
+        state, engine = init_state(params), init_state.engine
+    state, start = resume_or_init(args.checkpoint_dir, state,
                                   expect_meta=ckpt_meta)
     if start:
         print(f"resumed from {args.checkpoint_dir} at step {start}")
@@ -187,7 +215,7 @@ def run(cfg, args):
     losses = [h["loss"] for h in out["history"]]
     if losses:
         print(f"loss: first={losses[0]:.4f} last={losses[-1]:.4f}")
-    return dict(out, engine=init_state.engine)
+    return dict(out, engine=engine)
 
 
 def main(argv=None):

@@ -39,6 +39,8 @@ from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_mla_attention)
 
+from . import act_sharding as ACT
+
 QUERY_CHUNK_THRESHOLD = 2_048    # training: checkpointed query blocks
 QUERY_CHUNK = 512
 
@@ -605,8 +607,8 @@ def _mla_absorbed_decode(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
       out    = (softmax·c_kv)·W_uv                    [B,1,H,dv]
 
     Positions ``<= offset`` (scalar or per-row [B]) are valid; the rest
-    score -1e30.  The reference's ``scores_sshard`` sharding hint has no
-    counterpart on one device."""
+    score -1e30.  The scores pass the reference's ``scores_sshard``
+    hook."""
     m = cfg.mla
     B, T, H, dn = q_nope.shape
     S = c_kv.shape[1]
@@ -617,6 +619,7 @@ def _mla_absorbed_decode(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
     s = s + torch.einsum("bthd,bsd->bhts", q_rope,
                          k_rope[:, :, 0]).float()
     s = s / math.sqrt(dn + m.qk_rope_head_dim)
+    s = ACT.scores_sshard(s)
     off = torch.as_tensor(offset, device=s.device).reshape(-1, 1, 1, 1)
     valid = torch.arange(S, dtype=torch.int32,
                          device=s.device)[None, None, None, :] <= off
@@ -725,8 +728,7 @@ def apply_moe(p, cfg: ArchConfig, x):
     the gates' gradients follow ``torch.topk``'s values, a dropped pick
     (weight 0) gives its expert nothing, and an expert no token reaches
     computes on zero rows, so its weights get zero gradients, as JAX's.
-    The reference's ``moe_buf`` sharding hint has no counterpart on one
-    device.  On CUDA the combine's ``index_add_`` uses atomics, so its
+    The expert buffers pass the reference's ``moe_buf`` hook.  On CUDA the combine's ``index_add_`` uses atomics, so its
     bf16 sums may round differently from run to run."""
     mo: MoEConfig = cfg.moe
     B, T, D = x.shape
@@ -755,11 +757,13 @@ def apply_moe(p, cfg: ArchConfig, x):
 
     x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)     # [B,T+1,D]
     buf = x_pad[rows, slot_tok.reshape(B, E * C)].reshape(B, E, C, D)
+    buf = ACT.moe_buf(buf)
 
     act = F.silu if cfg.mlp == "swiglu" else _gelu_tanh
     h = act(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    y_exp = torch.einsum("becf,efd->becd", h, p["w_down"])     # [B,E,C,D]
+    y_exp = ACT.moe_buf(
+        torch.einsum("becf,efd->becd", h, p["w_down"]))       # [B,E,C,D]
 
     contrib = y_exp[rows, e_s, torch.clamp(slot, max=C - 1)] \
         * w.to(y_exp.dtype)[..., None]                        # [B,T*K,D]

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from . import act_sharding as ACT
 from . import layers as L
 from . import ssm as S
 
@@ -369,7 +370,7 @@ def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None,
             positions = torch.arange(h.shape[1], dtype=torch.int32,
                                      device=h.device)
         h = h + L.sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
-    return h
+    return ACT.hidden(h)
 
 
 def _prefix_len(cfg: ArchConfig):
@@ -389,14 +390,20 @@ def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
     ``torch.utils.checkpoint`` (``_REMAT``).  With caches (serving): the
     new caches, and ``aux`` None."""
     if caches is not None:
-        new_caches = []
-        for i, kind in enumerate(cfg.layer_pattern):
-            h, nc, _aux = apply_block(
-                params["layers"][i], cfg, kind, h, positions=positions,
-                cache=caches[i], offset=offset, prefix_len=prefix_len,
-                block_tables=block_tables, paged_kernel=paged_kernel,
-                rec_rows=rec_rows, update_mask=update_mask)
-            new_caches.append(nc)
+        new_caches, first = [], 0
+        for unit, reps in cfg.segments():
+            for _ in range(reps):
+                for j, kind in enumerate(unit):
+                    h, nc, _aux = apply_block(
+                        params["layers"][first + j], cfg, kind, h,
+                        positions=positions, cache=caches[first + j],
+                        offset=offset, prefix_len=prefix_len,
+                        block_tables=block_tables,
+                        paged_kernel=paged_kernel, rec_rows=rec_rows,
+                        update_mask=update_mask)
+                    new_caches.append(nc)
+                h = ACT.hidden(h)
+                first += len(unit)
         return h, new_caches, None
 
     def run_unit(h, first, unit):
@@ -406,7 +413,7 @@ def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
                                     h, positions=positions,
                                     prefix_len=prefix_len)
             aux_sum = aux_sum + aux
-        return h, aux_sum
+        return ACT.hidden(h), aux_sum
 
     remat = torch.is_grad_enabled() and _REMAT == "block"
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -427,7 +434,7 @@ def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
 
 def _head(params, cfg: ArchConfig, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]["w"]
-    logits = (h @ w).float()
+    logits = ACT.logits((h @ w).float())
     return L.softcap(logits, cfg.logit_softcap)
 
 

@@ -17,9 +17,11 @@ Recovery flow:
 On one device the BSP ranks are the leading axis of every per-rank tensor
 (``core/collectives.py``), so the re-mesh is a smaller rank axis: the
 counterpart of the reference's ``build_mesh_from_tiles`` returns the
-surviving ranks, in the new world's order, instead of a device mesh.  The
-reference's ``reshard_state`` places a restored state onto GSPMD
-shardings; it comes with the sharding surface (ROADMAP A12).
+surviving ranks, in the new world's order, instead of a device mesh.
+``reshard_state`` places a restored state on a mesh's specs, which on one
+card (``launch/mesh.py``: virtual devices on one torch device) means
+checking each spec against the mesh and moving the state to the mesh's
+device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.core.tree import FractalTree
 from repro_torch.runtime.fault_tolerance import surviving_domain
@@ -74,3 +78,56 @@ def surviving_ranks(tree: FractalTree, tiles: Sequence[Coord]
             flat = flat * d + c
         out.append(flat)
     return tuple(out)
+
+
+def reshard_state(state, mesh, spec_tree):
+    """Re-place a (restored) host-side state onto ``mesh``: every tensor on
+    the mesh's torch device, returned as a new tree.  ``spec_tree`` is a
+    tree prefix of ``state`` whose leaves are specs (``models.sharding.P``;
+    a spec where ``state`` has a subtree applies to all of it), as the
+    reference's ``device_put`` takes it.  Raises ``ValueError`` where that
+    raises: a tree that does not match, a spec that names an axis the mesh
+    lacks or names one twice, one longer than its tensor's rank, or one
+    whose axes do not divide their dimension; and for an abstract mesh,
+    which has no device."""
+    from repro_torch.models.sharding import P, check_spec
+    if mesh.device is None:
+        raise ValueError(f"{mesh!r} is abstract: it has no device to place "
+                         "a state on")
+
+    def place(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        check_spec(tuple(x.shape), mesh, spec)
+        y = x.detach().to(mesh.device)
+        return y.requires_grad_(True) if x.requires_grad else y
+
+    def walk(x, spec, path):
+        if isinstance(spec, P):
+            return walk_leaves(x, spec)
+        if isinstance(spec, dict):
+            if not isinstance(x, dict) or set(x) != set(spec):
+                raise ValueError(f"{path or 'state'}: spec keys "
+                                 f"{sorted(spec)} do not match the state's")
+            return {k: walk(x[k], spec[k], f"{path}/{k}") for k in x}
+        if isinstance(spec, (list, tuple)):
+            if not isinstance(x, (list, tuple)) or len(x) != len(spec):
+                raise ValueError(f"{path or 'state'}: a spec sequence of "
+                                 f"{len(spec)} for the state's "
+                                 f"{type(x).__name__}")
+            items = [walk(v, sp, f"{path}/{i}")
+                     for i, (v, sp) in enumerate(zip(x, spec))]
+            return type(x)(*items) if hasattr(x, "_fields") \
+                else type(x)(items)
+        raise ValueError(f"{path or 'state'}: {spec!r} is not a spec")
+
+    def walk_leaves(x, spec):
+        if isinstance(x, dict):
+            return {k: walk_leaves(v, spec) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            items = [walk_leaves(v, spec) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") \
+                else type(x)(items)
+        return place(x, spec)
+
+    return walk(state, spec_tree, "")

@@ -58,7 +58,8 @@ class LoopConfig:
 def _wait(state) -> None:
     """Block until the device has finished the step (the reference's
     ``block_until_ready``)."""
-    dev = getattr(getattr(state, "flat_mu", None), "device", None)
+    dev = getattr(state, "device", None) \
+        or getattr(getattr(state, "flat_mu", None), "device", None)
     if dev is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -66,7 +67,8 @@ def _wait(state) -> None:
 @dataclass
 class TrainLoop:
     step_fn: Callable                 # (state, batch) -> (state, metrics)
-    state: Any                        # trainer.BSPTrainState
+    state: Any                        # trainer.BSPTrainState or
+                                      # trainer.GSPMDTrainState
     data: SyntheticLM
     cfg: LoopConfig
     monitor: Optional[HostMonitor] = None

@@ -1,5 +1,22 @@
-"""BSP training step on one device (port of ``repro/runtime/trainer.py``,
-the explicit-schedule tier ``make_bsp_train_step``).
+"""Training and serving step builders on one device (port of
+``repro/runtime/trainer.py``).  Two tiers, as the reference's:
+
+  * ``make_gspmd_train_step`` (Tier A, ``--schedule xla``): the GSPMD
+    baseline.  The reference jits ``loss_fn`` on the global batch with
+    FSDP×TP shardings and lets XLA schedule the gradient reduction.  GSPMD's
+    contract is that the sharded program computes the unsharded one; a
+    mesh here is virtual devices on one torch device
+    (``launch/mesh.py``), so the step is that program: ``loss_fn`` on the
+    GLOBAL batch in one forward and backward, then the pytree AdamW with
+    the global-norm clip (``optim.adamw.apply_updates``), and no
+    communication.  It does not split the batch into per-rank losses: the
+    MoE balance loss and the frontend text mask are means over the global
+    batch.  The builders return the reference's specs (params FSDP×TP,
+    AdamW moments alike, batch over the FSDP axes) and set the
+    ``act_sharding`` policy as the reference's do;
+    ``make_prefill_step`` / ``make_decode_step`` are the serving steps of
+    the same tier (params in ``_serve_mode``'s layout).
+  * ``make_bsp_train_step`` (Tier B): the explicit-schedule superstep.
 
 A BSP world of W ranks is the leading axis of every per-rank tensor on one
 device (see ``core/collectives.py``):
@@ -27,8 +44,7 @@ One superstep, in the reference's order (trainer.py:355-417):
 
 To fit the card, the EF residual, the moments and the params are updated
 in place, and each bucket's gradient payload is dropped once it is
-reduced; the arithmetic is the reference's.  ``make_gspmd_train_step`` has
-no counterpart on one device.
+reduced; the arithmetic is the reference's.
 
 ``shares=`` (uneven per-rank micro-batches, trainer.py:279-353 of the
 reference) replaces the compute phase: rank r runs its ``shares[r]``
@@ -58,10 +74,191 @@ from repro_torch.core import collectives as C
 from repro_torch.core.bsp import BSPConfig
 from repro_torch.core.superstep import engine_for
 from repro_torch.device import resolve_device
+from repro_torch.models import act_sharding as ACT
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import quantization_error
 from repro_torch.weights import reference_leaves
+
+
+# ---------------------------------------------------------------------------
+# Tier A: the GSPMD step (the --schedule xla baseline)
+# ---------------------------------------------------------------------------
+
+
+def _host_leaves(tree, cfg: ArchConfig) -> List[torch.Tensor]:
+    """A params-shaped tree as the reference's layer-stacked leaves, copied
+    to host memory now."""
+    out = []
+    for leaf in reference_leaves(tree, cfg):
+        host = torch.empty(leaf.shape, dtype=leaf.dtype)
+        rows = host.view(len(leaf.parts), -1)
+        for row, part in zip(rows, leaf.parts):
+            row.copy_(part.detach().reshape(-1))
+        out.append(host)
+    return out
+
+
+def _load_leaves(tree, cfg: ArchConfig, srcs) -> Any:
+    """A new tree shaped, typed and placed like the params-shaped ``tree``,
+    holding the reference's stacked leaves ``srcs``."""
+    new = _map_tensors(tree, lambda t: torch.empty_like(
+        t, requires_grad=False))
+    for leaf, dst, src in zip(reference_leaves(tree, cfg),
+                              reference_leaves(new, cfg), srcs):
+        if tuple(src.shape) != leaf.shape:
+            raise ValueError(f"{leaf.path}: checkpoint shape "
+                             f"{tuple(src.shape)} != {leaf.shape}")
+        for part, row in zip(dst.parts, src.reshape(len(dst.parts), -1)):
+            part.copy_(row.reshape(part.shape))
+    return new
+
+
+def _flat_parts(tree, cfg: ArchConfig) -> List[torch.Tensor]:
+    return [t for leaf in reference_leaves(tree, cfg) for t in leaf.parts]
+
+
+@dataclass
+class GSPMDTrainState:
+    """The reference's ``(params, AdamWState)``: params one dict per layer,
+    the AdamW moments trees of the same shape."""
+
+    params: Dict[str, Any]
+    opt: adamw.AdamWState
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        for t in _flat_parts(self.params, self.cfg):
+            t.requires_grad_(True)
+
+    @property
+    def device(self) -> torch.device:
+        return self.opt.step.device
+
+    # -- checkpoint leaves: (params, AdamWState(step, mu, nu)) -----------
+
+    def checkpoint_leaves(self) -> List[torch.Tensor]:
+        """The reference's leaves of ``(params, opt_state)``, copied to host
+        memory now: the params', the step (int32), mu's, nu's."""
+        return (_host_leaves(self.params, self.cfg)
+                + [self.opt.step.detach().to("cpu", copy=True)]
+                + _host_leaves(self.opt.mu, self.cfg)
+                + _host_leaves(self.opt.nu, self.cfg))
+
+    def checkpoint_leaf_count(self) -> int:
+        return 3 * len(reference_leaves(self.params, self.cfg)) + 1
+
+    def checkpoint_descriptor(self) -> str:
+        n = len(reference_leaves(self.params, self.cfg))
+        return (f"repro_torch GSPMDTrainState: ({n} params leaves, "
+                f"AdamWState(step, {n} mu leaves, {n} nu leaves))")
+
+    def from_checkpoint_leaves(self, leaves) -> "GSPMDTrainState":
+        """A new state shaped, typed and placed like this one, holding the
+        checkpoint's ``leaves`` (``checkpoint_leaves`` order)."""
+        n = len(reference_leaves(self.params, self.cfg))
+        step = leaves[n].reshape(()).to(torch.int32).to(self.device)
+        opt = adamw.AdamWState(
+            step=step, mu=_load_leaves(self.opt.mu, self.cfg,
+                                       leaves[n + 1:2 * n + 1]),
+            nu=_load_leaves(self.opt.nu, self.cfg, leaves[2 * n + 1:]))
+        return GSPMDTrainState(_load_leaves(self.params, self.cfg,
+                                            leaves[:n]), opt, self.cfg)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device is None:
+        raise ValueError(f"{mesh!r} is abstract: a step needs a mesh on a "
+                         "torch device (launch.mesh.make_mesh)")
+    return mesh.device
+
+
+def make_gspmd_train_step(cfg: ArchConfig, mesh, acfg: adamw.AdamWConfig):
+    """``(step, (pspec, ospec, bspec))``: ``step(state, batch) -> (state,
+    metrics)`` on a ``GSPMDTrainState``, ``batch`` the GLOBAL batch
+    (``tokens``, ``labels``, and ``frontend`` for frontend models), metrics
+    ``loss_fn``'s with ``loss``, ``grad_norm`` and ``lr``; the specs as
+    the reference's (``{leaf path: P}`` in its leaf order for the params,
+    ``AdamWState(step=P(), mu=pspec, nu=pspec)``, the batch's)."""
+    dev = _mesh_device(mesh)
+    ACT.set_policy(mesh, SH.fsdp_axes(mesh))
+    ACT.SERVE_EP = False
+
+    def train_step(state: GSPMDTrainState, batch):
+        batch = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in BATCH_KEYS if k in batch}
+        flat = _flat_parts(state.params, cfg)
+        with torch.enable_grad():
+            loss, metrics = T.loss_fn(state.params, cfg, batch)
+            grads = torch.autograd.grad(loss, flat)
+        opt = state.opt
+        _, new, om = adamw.apply_updates(
+            flat, list(grads), adamw.AdamWState(
+                opt.step, _flat_parts(opt.mu, cfg), _flat_parts(opt.nu, cfg)),
+            acfg)
+        del grads
+        state.opt = adamw.AdamWState(new.step, opt.mu, opt.nu)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, dict(metrics, loss=loss.detach(), **om)
+
+    pspec = SH.param_specs(cfg, None, mesh)
+    ospec = adamw.AdamWState(step=SH.P(), mu=pspec, nu=pspec)
+    bspec_all = SH.batch_spec(mesh)
+    bspec = {"tokens": bspec_all["tokens"], "labels": bspec_all["labels"]}
+    if cfg.frontend:
+        bspec["frontend"] = bspec_all["frontend"]
+    return train_step, (pspec, ospec, bspec)
+
+
+# ---------------------------------------------------------------------------
+# Tier A: serving steps (prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def _serve_mode(cfg: ArchConfig) -> str:
+    """MoE archs serve with pinned weights (TP+EP: tokens move, weights
+    stay); dense archs keep the FSDP layout."""
+    return "serve" if cfg.moe else "train"
+
+
+def make_prefill_step(cfg: ArchConfig, mesh, batch: int, max_len: int):
+    """``(step, (pspec, cspec))``: ``step(params, tokens, cache,
+    frontend=None)`` is ``transformer.prefill``; the specs as the
+    reference's for a ``[batch, max_len]`` contiguous cache."""
+    _mesh_device(mesh)
+    ACT.set_policy(mesh, SH.fsdp_axes(mesh))
+    ACT.SERVE_EP = cfg.moe is not None
+
+    def prefill_step(params, tokens, cache, frontend=None):
+        with torch.no_grad():
+            return T.prefill(params, cfg, tokens, cache, frontend)
+
+    pspec = SH.param_specs(cfg, None, mesh, mode=_serve_mode(cfg))
+    cspec = SH.cache_specs(cfg, SH.cache_shapes(cfg, batch, max_len), mesh)
+    return prefill_step, (pspec, cspec)
+
+
+def make_decode_step(cfg: ArchConfig, mesh, batch: int, max_len: int):
+    """``(step, (pspec, cspec))``: ``step(params, token, cache, offset) ->
+    (logits, cache)`` is ``transformer.decode_step``; the specs as
+    ``make_prefill_step``'s."""
+    _mesh_device(mesh)
+    ACT.set_policy(mesh, SH.fsdp_axes(mesh))
+    ACT.SERVE_EP = cfg.moe is not None
+
+    def serve_step(params, token, cache, offset):
+        with torch.no_grad():
+            return T.decode_step(params, cfg, token, cache, offset)
+
+    pspec = SH.param_specs(cfg, None, mesh, mode=_serve_mode(cfg))
+    cspec = SH.cache_specs(cfg, SH.cache_shapes(cfg, batch, max_len), mesh)
+    return serve_step, (pspec, cspec)
+
+
+# ---------------------------------------------------------------------------
+# Tier B: the explicit BSP superstep
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -81,13 +278,7 @@ class BSPTrainState:
     def checkpoint_leaves(self) -> List[torch.Tensor]:
         """The state as the reference's checkpoint leaves, copied to host
         memory now (the step updates the state in place afterwards)."""
-        out = []
-        for leaf in reference_leaves(self.params, self.cfg):
-            host = torch.empty(leaf.shape, dtype=leaf.dtype)
-            rows = host.view(len(leaf.parts), -1)
-            for row, part in zip(rows, leaf.parts):
-                row.copy_(part.detach().reshape(-1))
-            out.append(host)
+        out = _host_leaves(self.params, self.cfg)
         world = self.flat_mu.shape[0]
         for t in (self.flat_mu, self.flat_nu):
             out.append(t.detach().reshape(-1).to("cpu", copy=True))
@@ -111,7 +302,7 @@ class BSPTrainState:
         checkpoint's ``leaves`` (host tensors in ``checkpoint_leaves``
         order, as many as ``checkpoint_leaf_count``).  Raises
         ``ValueError`` if a leaf's size does not fit."""
-        ref = reference_leaves(self.params, self.cfg)
+        n = len(reference_leaves(self.params, self.cfg))
 
         def fit(src, like):
             if src.numel() != like.numel():
@@ -119,19 +310,10 @@ class BSPTrainState:
                                  f"elements for a tensor of {like.numel()}")
             return src.to(like.dtype).reshape(like.shape).to(like.device)
 
-        params = _map_tensors(self.params, lambda t: torch.empty_like(
-            t, requires_grad=False))
-        for leaf, new, src in zip(ref, reference_leaves(params, self.cfg),
-                                  leaves):
-            if tuple(src.shape) != leaf.shape:
-                raise ValueError(f"{leaf.path}: checkpoint shape "
-                                 f"{tuple(src.shape)} != {leaf.shape}")
-            rows = src.reshape(len(new.parts), -1)
-            for part, row in zip(new.parts, rows):
-                part.copy_(row.reshape(part.shape))
-            for part in new.parts:
-                part.requires_grad_(True)
-        mu, nu, ef, step = leaves[len(ref):]
+        params = _load_leaves(self.params, self.cfg, leaves[:n])
+        for t in _flat_parts(params, self.cfg):
+            t.requires_grad_(True)
+        mu, nu, ef, step = leaves[n:]
         ef_new = None if self.ef_residual is None \
             else fit(ef, self.ef_residual)
         return BSPTrainState(params, fit(mu, self.flat_mu),

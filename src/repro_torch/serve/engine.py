@@ -51,7 +51,18 @@ gather-then-attend lowering.  The engine's device is its params' device.
 ``serve_waves`` is the wave-at-a-time loop kept as the TEST ORACLE: it
 batch-prefills whole prompts over the contiguous cache with no chunking,
 no masking and no slot reuse, so any engine output can be checked against
-it token for token.  Not ported: mesh sharding (one card is one device).
+it token for token.
+
+**Mesh composition** (the reference's): given a 1-axis ("data",) mesh
+(``launch.mesh.make_mesh``: virtual devices on one torch device) the slot
+batch shards across its devices: ``max_slots`` must divide among them,
+the params are replicated (``P()``), the contiguous cache's slot axis is
+sharded (``P(None, "data", None, ...)`` on each layer-stacked leaf) and
+paged pools and hybrid caches, which have no slot axis, are replicated.
+The engine keeps each leaf's sharding (``shardings["params"]``,
+``shardings["cache"]``: ``{reference leaf path: NamedSharding}``).
+Decode computes on the whole tensor, which is what the mesh's devices
+compute together, so the outputs are the ones without a mesh.
 """
 
 from __future__ import annotations
@@ -147,10 +158,7 @@ class ServeEngine:
         _check_arch(cfg)
         self.cfg = cfg
         self.ecfg = ecfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding is not ported: one card is one device "
-                "(torch.distributed comes in a later slice)")
+        self.mesh = mesh
         if ecfg.chunks_per_step < 1:
             raise ValueError("chunks_per_step must be >= 1")
         if ecfg.prefill_chunk < 1:
@@ -206,6 +214,15 @@ class ServeEngine:
         self.results: Dict[int, List[int]] = {}
         self._admission_hold = 0     # steps left with admission stalled
 
+        self.shardings = None
+        if mesh is not None:
+            from repro_torch.models import sharding as SH
+            from repro_torch.runtime.elastic import reshard_state
+            if ecfg.max_slots % mesh.devices.size:
+                raise ValueError(
+                    f"--max-slots {ecfg.max_slots} must divide across "
+                    f"{mesh.devices.size} devices")
+            params = reshard_state(params, mesh, SH.P())
         self.params = params
         self.device = params["embed"].device
         if self.has_rec:
@@ -225,7 +242,27 @@ class ServeEngine:
         else:
             self.cache = T.init_cache(cfg, ecfg.max_slots, ecfg.max_len,
                                       device=self.device)
+        if mesh is not None:
+            self.shardings = self._mesh_shardings(mesh)
         self._sample = _make_sampler(ecfg.seed, ecfg.temperature)
+
+    def _mesh_shardings(self, mesh):
+        """The reference engine's placement of each param and cache leaf
+        (``{reference leaf path: NamedSharding}`` in its leaf order): params
+        replicated; a contiguous cache (no recurrent rows) sharded over the
+        slot axis, which is axis 1 of a layer-stacked leaf; paged pools and
+        hybrid caches replicated (they have no slot axis)."""
+        from repro_torch.models import sharding as SH
+        from repro_torch.weights import reference_leaves
+        rep = SH.NamedSharding(mesh, SH.P())
+        params = {leaf.path: rep
+                  for leaf in reference_leaves(self.params, self.cfg)}
+        cache = {}
+        for leaf in SH.cache_leaves(self.cache, self.cfg):
+            spec = SH.P() if self.has_rec or self.paged else SH.P(
+                None, "data", *([None] * (len(leaf.shape) - 2)))
+            cache[leaf.path] = SH.NamedSharding(mesh, spec)
+        return {"params": params, "cache": cache}
 
     def _put(self, x: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)

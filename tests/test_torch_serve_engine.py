@@ -152,9 +152,10 @@ def test_sampling_independent_of_slot_count(cfgs, params):
 
 
 def test_engine_rejects_unported_modes(cfgs, params):
-    """What stays unported raises: the reference's Pallas lowering name
-    and a mesh; the wave oracle refuses the paged cache, as the
-    reference's CLI does."""
+    """What stays unported raises: the reference's Pallas lowering name;
+    the wave oracle refuses the paged cache, as the reference's CLI does;
+    a mesh that the slot pool does not divide among raises the reference's
+    ValueError (mesh sharding itself is ported)."""
     cfg, _ = cfgs
     p, _ = params
     cli = ["--arch", ARCH, "--device", "cpu"]
@@ -168,8 +169,12 @@ def test_engine_rejects_unported_modes(cfgs, params):
         ServeEngine(cfg, p, EngineConfig(kv_mode="ring"))
     with pytest.raises(ValueError, match="paged_kernel"):
         ServeEngine(cfg, p, EngineConfig(paged_kernel="pallas"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(cfg, p, EngineConfig(), mesh=object())
+    # mesh sharding is ported: a slot pool that does not divide among the
+    # mesh's devices raises the reference's ValueError
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="must divide across 4 devices"):
+        ServeEngine(cfg, p, EngineConfig(max_slots=6),
+                    mesh=make_mesh((4,), ("data",), device="cpu"))
 
 
 def test_cli_serves_every_request_on_cpu(capsys):
@@ -182,5 +187,11 @@ def test_cli_serves_every_request_on_cpu(capsys):
     assert metrics.summary()["completed"] == 5
     assert ops.LAUNCHES == launches      # CPU tensors never launch
     assert "kernel launches: 0" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="devices"):
-        serve_cli.main(["--arch", ARCH, "--device", "cpu", "--devices", "2"])
+    # --devices shards the slot batch (ported): the same outputs
+    sharded, _ = serve_cli.main([
+        "--arch", ARCH, "--device", "cpu", "--requests", "5",
+        "--prompt-len", "6", "--gen", "5", "--gen-spread", "3",
+        "--max-slots", "2", "--prefill-chunk", "4", "--block-size", "4",
+        "--devices", "2"])
+    assert "devices=2" in capsys.readouterr().out
+    assert sharded == results

@@ -34,8 +34,9 @@
       - losses of steps 1-2: atol 1e-4 (they follow the params; measured
         ~1e-6).
   * the CLI on ``--device cpu`` (a forced non-fractal schedule and each
-    auto value among its runs), and its refusal of ``--schedule xla``
-    (``--checkpoint-dir`` runs since slice 9:
+    auto value among its runs), and ``--schedule xla`` running the GSPMD
+    step (its parity: ``tests/test_torch_gspmd.py``; ``--checkpoint-dir``
+    runs since slice 9:
     ``tests/test_torch_checkpoint.py``; ``--calibrate`` since slice 12:
     ``tests/test_torch_calibrate.py``).
 
@@ -357,12 +358,15 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--schedule", "xla"], "A12"),
+    (["--schedule", "xla"], "gspmd: mesh data=1 × model=1"),
 ])
-def test_cli_refuses_unported_flags(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(["--arch", ARCH, "--device", "cpu", "--steps", "1"]
-                       + extra)
+def test_cli_refuses_unported_flags(capsys, extra, match):
+    """No flag is refused any more: ``--schedule xla`` (once refused as
+    unported) runs the GSPMD step (``tests/test_torch_gspmd.py``)."""
+    out = train_cli.main(["--arch", ARCH, "--device", "cpu", "--steps", "1"]
+                         + extra)
+    assert match in capsys.readouterr().out
+    assert np.isfinite(out["history"][0]["loss"]) and out["engine"] is None
 
 
 @pytest.mark.parametrize("extra,plan", [
