@@ -164,8 +164,9 @@ The quickest proof that the port starts on the card.  Phases, in order
                 gemma2-2b's widths cut to ``SERVE_SOAK_CUT``: no failure,
                 the baseline p99, the recovery step, B7 launched once per
                 layer per decode step;
-  3x. xlstm   — xlstm-1.3b at full published width, no cut (48 layers,
-                2.02 B params, 672 MiB of f32 state a request): phase 3's
+  3x. xlstm   — xlstm-1.3b at published widths with ONE cut, 48 -> 24
+                layers (``XLSTM_SERVE_CUT``, 1.11 B params, 336 MiB of f32
+                state a request): phase 3's
                 traffic, continuous and wave, with 3c's and 3w's checks
                 (no paged-attention launch; the wave within
                 ``XLSTM_WAVE_LOGIT_ATOL``); the decode step's host and
@@ -248,7 +249,24 @@ The quickest proof that the port starts on the card.  Phases, in order
                 fractal superstep with no codec: losses within
                 ``EQUIV_LOSS_ATOL``, every param element within 2·lr + one
                 bf16 ulp a step of the other tier's; the largest gaps;
-  9. an earlier line lists the kernels (JSON), and the last line is
+  9. dryrun  — slice 14, after phase 5m, on no kernel: (a)
+                ``python -m repro_torch.launch.dryrun`` on three
+                production cells (``DRYRUN_CELLS``, both meshes, each cell
+                a process of its own, all at once): every record ``ok``,
+                its trace seconds and roofline terms; (b) phase 5l's step
+                (gemma2-2b, 26 layers, 8 x 1024, mesh (4, 1)) under
+                ``remat=block`` and ``remat=dots``: traced on ``meta``
+                through ``hlo_analysis.analyze_program``, then one step
+                on the card inside the same counter: the FLOP and dot
+                counts equal, the traced argument bytes equal the state's
+                and batch's on the card, the traced peak of live storage
+                within ``DRYRUN_PEAK_RTOL`` of the allocator's; the step
+                time against the H100 floor (the traced FLOPs and the
+                minimal bytes at peak rates) and, no bound, the eager
+                op-by-op traffic at peak bandwidth; dots'
+                step-0 loss equal to block's bit for bit and its params
+                within phase 5m's bound of block's;
+  last: a line lists the kernels (JSON), and the last line is
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the repo's ``src/`` beside it, it exits 1 and
@@ -518,11 +536,16 @@ SERVE_SOAK_PLAN = "stall:steps=700..760;blocks:frac=0.5,steps=1000..1200"
 SERVE_SOAK_ENGINE = dict(max_slots=8, max_len=32, prefill_chunk=8,
                          chunks_per_step=2, kv_mode="paged", block_size=8,
                          kv_blocks=33, clock="step")
-# [3x] xlstm-1.3b at full published width, no cut: 48 layers (42 mLSTM, 6
-# sLSTM), 2,020,763,984 params, 4.04 GB in bf16; 42 x 4 heads x 1024 x
-# 1024 x 4 B = 672 MiB of f32 mLSTM state a request (plus the small sLSTM
-# and conv state), so 8 rows + the sentinel hold 5.9 GiB.  Phase 3's
-# traffic; no KV cache, so no paged-attention launch.
+# [3x] xlstm-1.3b at published widths with ONE cut, 48 -> 24 layers: three
+# whole units of 7 mLSTM + 1 sLSTM (21 mLSTM, 3 sLSTM), 1,113,405,608
+# params, 2.23 GB in bf16; 21 x 4 heads x 1024 x 1024 x 4 B = 336 MiB of
+# f32 mLSTM state a request (plus the small sLSTM and conv state), so 8
+# rows + the sentinel hold 3.0 GiB.  Phase 3's traffic; no KV cache, so
+# no paged-attention launch.  The eager scan's time grows with the layers
+# (all 48 took 147-196 s of the run); the cut pays for phase 5f's second
+# step.
+XLSTM_SERVE_CUT = dict(num_layers=24, layer_pattern=(("mlstm",) * 7
+                                                     + ("slstm",)) * 3)
 XLSTM_SERVE_ARGS = ["--arch", "xlstm-1.3b"] + CONTIG_SERVE_ARGS[2:]
 # [8] jamba-v0.1-52b at published widths with ONE cut, 32 -> 16 layers
 # (two of its 8-layer units, each 3 mamba, 4 mamba+MoE and 1 attention
@@ -549,7 +572,8 @@ JAMBA_LOGIT_ATOL = 0.75
 # train phase's 42 B per parameter (all 48 layers would be 84.9 GB).
 # World 4, every choice left to the autotuner, 4 x 512 tokens: one row a
 # rank, so every 512-step scan takes the reference's two-chunk path
-# (``ssm.TIME_CHUNK`` 256); 2 steps.  The eager scan is launch-bound
+# (``ssm.TIME_CHUNK`` 256); 2 steps, so that the second carries the
+# first's error-feedback state.  The eager scan is launch-bound
 # (phase 3x), so the rows are short and the steps few.
 XLSTM_TRAIN_CUT = dict(num_layers=8, layer_pattern=("mlstm",) * 7
                        + ("slstm",))
@@ -4416,6 +4440,243 @@ def phase_tier_equivalence(torch, cfg, dev, argv=None):
     return worst
 
 
+# Slice 14: the dry run.  [9a] the CLI on three production cells, on both
+# of the reference's v5e meshes (16 x 16 and 2 x 16 x 16), traced on
+# ``meta``; each record must say ``ok``.
+DRYRUN_CELLS = ("gemma2-2b:train_4k", "deepseek-v3-671b:decode_32k",
+                "xlstm-1.3b:long_500k")
+DRYRUN_TAG = "chip_smoke"
+# [9b] phase 5l's step (``GSPMD_ARGS``: gemma2-2b at all 26 layers, 8 x
+# 1024 tokens, mesh (4, 1)) under each remat, traced on ``meta`` and then
+# run once on the card inside the same counter.
+DRYRUN_REMATS = ("block", "dots")
+# The traced peak of live storage against the allocator's peak for the
+# same step (``torch.cuda.max_memory_allocated`` less what was allocated
+# before the step outside its arguments).  Fixed before the first run on
+# the card: both see the same tensors freed at the same points (the
+# autograd engine frees saved tensors in one order on every device), so
+# they differ only by what the dispatcher does not see: cuBLAS's
+# workspace, kernels' internal scratch (sorts, reductions) and the
+# allocator's rounding of each block to 512 bytes.  Those are tens of MiB
+# against a peak of ~50 GiB (phase 5l: 50.39 GiB under block remat), so
+# 5 % holds them with room.
+DRYRUN_PEAK_RTOL = 0.05
+
+
+def phase_dryrun_cli(torch, src=None, cells=DRYRUN_CELLS, tag=DRYRUN_TAG):
+    """[9a] ``python -m repro_torch.launch.dryrun --cell C --mesh both`` for
+    each of ``cells``, each a process of its own, all started at once:
+    every process exits 0 and each of its two records says ``ok``.
+    Prints each record's trace seconds and roofline terms; returns the
+    records."""
+    import os
+    from repro_torch.launch import dryrun as DR
+    env = dict(os.environ, PYTHONPATH=str(src or SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell", c,
+         "--mesh", "both", "--force", "--tag", tag], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cells]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    recs = []
+    for cell, p, out in zip(cells, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun --cell {cell}: exit "
+                                 f"{p.returncode}\n{out[-3000:]}")
+        arch, _, shape = cell.partition(":")
+        for mesh in ("single", "multi"):
+            rec = json.loads(DR.cell_path(arch, shape, mesh, tag)
+                             .read_text())
+            if rec.get("status") != "ok":
+                raise AssertionError(f"dryrun {cell} {mesh}: {rec}")
+            rf, mem = rec["roofline"], rec["memory"]
+            print(f"  9a {arch} {shape} {mesh} ({rec['devices']} devices): "
+                  f"trace {rec['trace_s']} s"
+                  f"{' (reused)' if rec['trace_reused'] else ''}; per "
+                  f"device: arguments {mem['argument_size_in_bytes']:,} B, "
+                  f"{rec['hlo_stats']['flops']:.4e} FLOPs (even split); "
+                  f"roofline on {rec['peaks']}: compute "
+                  f"{rf['compute_s']:.4e} s, memory (eager op-by-op "
+                  f"traffic) {rf['memory_s']:.4e} "
+                  f"s, collective {rf['collective_s']} s, dominant "
+                  f"{rf['dominant']}; useful_flops_ratio "
+                  f"{rec.get('useful_flops_ratio')}, roofline_fraction "
+                  f"{rec.get('roofline_fraction')}")
+            recs.append(rec)
+    return recs
+
+
+def _meta_like(torch, batch):
+    """A numpy batch's ``meta`` stand-in: shapes and dtypes only."""
+    return {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                           device="meta") for k, v in batch.items()}
+
+
+def phase_dryrun_card(torch, cfg, dev, argv=None):
+    """[9b] Phase 5l's GSPMD step on ``cfg`` under each of
+    ``DRYRUN_REMATS``: traced on ``meta`` through ``analyze_program``,
+    then one real step (data step 0) on ``dev`` inside a
+    ``ProgramCounter``, then two plain steps timed.  The traced and run
+    FLOP and dot counts must be equal, the traced argument bytes the
+    bytes of the state and batch on ``dev``, the traced peak of live
+    storage within ``DRYRUN_PEAK_RTOL`` of the allocator's (on the card);
+    the second remat's step-0 loss equal to the first's bit for bit and
+    its params within phase 5m's bound (2·lr + one bf16 ulp, x
+    ``EQUIV_SLACK``) of the first's.  Returns ``{remat: readings}``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init
+    from repro_torch.runtime import trainer
+    args = train_cli.parse_args(argv or GSPMD_ARGS)
+    cuda = dev.type == "cuda"
+    acfg = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=1)
+    data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
+                                       seq_len=args.seq, seed=args.seed))
+    on_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    shape = ((args.devices or 1), 1)
+    out, first = {}, None
+    for remat in DRYRUN_REMATS:
+        with DR.levers({"remat": remat}):
+            meta = Mesh(shape, ("data", "model"), device=torch.device("meta"))
+            step, _ = trainer.make_gspmd_train_step(cfg, meta, acfg)
+            params = T.init_params(cfg, device="meta")
+            t0 = time.perf_counter()
+            traced = H.analyze_program(
+                step, trainer.GSPMDTrainState(params, init(params, acfg),
+                                              cfg),
+                _meta_like(torch, data.batch(0)))
+            trace_s = time.perf_counter() - t0
+            del params
+            mesh = make_mesh(shape, ("data", "model"), device=dev)
+            step, _ = trainer.make_gspmd_train_step(cfg, mesh, acfg)
+            params = T.init_params(cfg, args.seed, device=dev)
+            state = trainer.GSPMDTrainState(params, init(params, acfg), cfg)
+            del params
+            batch = on_dev(data.batch(0))
+            held = H.tensor_bytes((state, batch))
+            gc.collect()
+            if cuda:
+                torch.cuda.synchronize(dev)
+                others = torch.cuda.memory_allocated(dev) - held
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with H.ProgramCounter((state, batch)) as pc:
+                state, m = step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            counted_s = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated(dev) - others if cuda
+                    else pc.stats.peak_live_bytes)
+            loss0 = m["loss"].item()
+            run = pc.stats
+            # the least the step must move: every argument read once and
+            # every output (the state, updated in place, and the metrics)
+            # written once
+            min_bytes = held + H.tensor_bytes((state, m))
+            secs = []
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            for s in (1, 2):
+                b = on_dev(data.batch(s))
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, _ = step(state, b)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                secs.append(time.perf_counter() - t0)
+            plain_peak = (torch.cuda.max_memory_allocated(dev) - others
+                          if cuda else 0)
+        eager = H.roofline_terms(traced)
+        step_s = min(secs)
+        t_bytes = min_bytes / H.H100_SXM.hbm
+        floor_s = max(eager["compute_s"], t_bytes)
+        by = "operations" if eager["compute_s"] >= t_bytes else "bytes"
+        print(f"  9b remat={remat}: traced on meta in {trace_s:.1f} s, the "
+              f"counted step on {dev} in {counted_s:.1f} s; FLOPs traced "
+              f"{traced.flops:,} / run {run.flops:,}; dots "
+              f"{traced.dot_count} / {run.dot_count}; aten ops "
+              f"{traced.instr_count} / {run.instr_count}; argument bytes "
+              f"traced {traced.input_bytes:,} / on {dev.type} {held:,}")
+        print(f"  9b remat={remat}: peak of live storage traced "
+              f"{traced.peak_live_bytes / 2**30:.2f} GiB, counted on "
+              f"{dev.type} {run.peak_live_bytes / 2**30:.2f} GiB, allocator "
+              f"{peak / 2**30:.2f} GiB (gap "
+              f"{(traced.peak_live_bytes - peak) / max(peak, 1) * 100:+.2f}"
+              f" %, bound {DRYRUN_PEAK_RTOL * 100:.0f} %); plain steps "
+              f"{', '.join(f'{t:.3f}' for t in secs)} s (peak "
+              f"{plain_peak / 2**30:.2f} GiB)")
+        print(f"  9b remat={remat}: the H100 SXM floor {floor_s:.4f} s "
+              f"({by}: the traced FLOPs at peak {eager['compute_s']:.4f} s, "
+              f"{eager['compute_s'] / step_s * 100:.1f} % of the step; the "
+              f"minimal bytes (arguments read once, outputs written once) "
+              f"{min_bytes:,} B at peak bandwidth {t_bytes:.4f} s, "
+              f"{t_bytes / step_s * 100:.1f} % of the step), "
+              f"{floor_s / step_s * 100:.1f} % of it reached; eager op-by-op "
+              f"traffic at peak bandwidth {eager['memory_s']:.4f} s "
+              f"({traced.hbm_bytes:.4e} B: every dispatched op's operands "
+              f"and results, no bound), "
+              f"{eager['memory_s'] / step_s * 100:.1f} % of the step; "
+              f"step-0 loss {loss0!r}; card {_smi()}")
+        if traced.flops != run.flops or traced.dot_count != run.dot_count:
+            raise AssertionError(f"remat={remat}: traced FLOPs/dots "
+                                 f"{traced.flops}/{traced.dot_count}, run "
+                                 f"{run.flops}/{run.dot_count}")
+        if not traced.input_bytes == held == run.input_bytes:
+            raise AssertionError(f"remat={remat}: argument bytes traced "
+                                 f"{traced.input_bytes}, held {held}, run "
+                                 f"{run.input_bytes}")
+        if abs(traced.peak_live_bytes - peak) > DRYRUN_PEAK_RTOL * peak:
+            raise AssertionError(f"remat={remat}: traced peak "
+                                 f"{traced.peak_live_bytes} vs {peak}")
+        out[remat] = dict(flops=traced.flops, dots=traced.dot_count,
+                          peak=peak, traced_peak=traced.peak_live_bytes,
+                          step_s=step_s, loss0=loss0, floor_s=floor_s,
+                          eager_traffic_s=eager["memory_s"])
+        if first is None:
+            first = (remat, loss0, _param_snapshot(torch, state.params, cfg))
+        else:
+            name, want, snap = first
+            if loss0 != want:
+                raise AssertionError(f"step-0 loss {remat} {loss0!r} != "
+                                     f"{name} {want!r}")
+            ratio, big = 0.0, 0.0
+            for (path, pa), (_, pb) in zip(
+                    _param_snapshot(torch, state.params, cfg), snap):
+                for a, b in zip(pa, pb):
+                    a, b = a.float(), b.float()
+                    d = (a - b).abs()
+                    lim = (2 * args.lr + _bf16_ulp(
+                        torch, torch.maximum(a.abs(), b.abs()))) * EQUIV_SLACK
+                    ratio = max(ratio, (d / lim).max().item())
+                    big = max(big, d.max().item())
+            print(f"  9b {remat} vs {name}: step-0 loss bit for bit; params "
+                  f"after step 0: largest |diff| {big:.4e}, largest gap / "
+                  f"its bound {ratio:.3f}; step {out[remat]['step_s']:.3f} "
+                  f"s vs {out[name]['step_s']:.3f} s, peak "
+                  f"{out[remat]['peak'] / 2**30:.2f} vs "
+                  f"{out[name]['peak'] / 2**30:.2f} GiB, FLOPs "
+                  f"{out[remat]['flops']:.4e} vs {out[name]['flops']:.4e}")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{remat}: a param {ratio:.3f} x its "
+                                     f"bound from {name}'s")
+            del snap
+            first = None
+        del state, m, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh_serve(torch, ops, cfg, runs, max_slots_cfg=None):
     """[4m] ``launch.serve.run`` with ``--devices MESH_DEVICES`` for each
     ``(argv, earlier out, (launches, merges))`` of ``runs`` (phase 3's and
@@ -4835,8 +5096,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    xl = get_config("xlstm-1.3b")
-    print(f"[3x] serve xlstm-1.3b at full published width ({xl.num_layers} "
+    xl = cut_config("xlstm-1.3b", XLSTM_SERVE_CUT)
+    print(f"[3x] serve xlstm-1.3b at published widths ({xl.num_layers} of 48 "
           "layers, recurrent rows): continuous, wave, one decode step",
           flush=True)
     t0 = time.perf_counter()
@@ -4888,6 +5149,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_tier_equivalence(torch, eq_cfg, dev)
     print(f"  phase 5m: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[9] the dry run: the CLI on {len(DRYRUN_CELLS)} production cells "
+          f"(meta), then gemma2-2b ({gemma.num_layers} layers) traced on "
+          f"meta against one step on the card, remat "
+          f"{' and '.join(DRYRUN_REMATS)}", flush=True)
+    t0 = time.perf_counter()
+    phase_dryrun_cli(torch)
+    phase_dryrun_card(torch, gemma, dev)
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

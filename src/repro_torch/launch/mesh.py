@@ -14,7 +14,8 @@ that all live on one torch device:
     blocks (``models.sharding.shard``) are the blocks jax would place on
     each device;
   * ``device`` is the torch device every tensor lives on (None for an
-    abstract mesh, which only prices specs).
+    abstract mesh, which only prices specs; ``meta`` for the dry run's,
+    whose steps run on shapes only).
 
 GSPMD's contract is that the sharded program computes what the unsharded
 one computes.  On one card that program is the unsharded one, on the
@@ -84,14 +85,21 @@ def abstract_mesh(shape, axes) -> Mesh:
     return Mesh(shape, axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The reference's v5e pod meshes: 16×16 = 256 chips ("data",
     "model"); the multi-pod variant stacks 2 pods on a leading "pod" axis
-    (512 chips).  Abstract: one card cannot hold 512 devices, and specs
-    need only the sizes."""
+    (512 chips).  Abstract by default: specs need only the sizes.
+    ``device="meta"`` puts it on the ``meta`` device, where a step builder
+    takes it and a step runs on shapes only (the dry run,
+    ``launch/dryrun.py``); one card holds no other such mesh."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return abstract_mesh(shape, axes)
+    if device is None:
+        return abstract_mesh(shape, axes)
+    if torch.device(device).type != "meta":
+        raise ValueError(f"a production mesh is abstract or on meta, not "
+                         f"{device!r}")
+    return Mesh(shape, axes, device=torch.device("meta"))
 
 
 def describe(mesh) -> str:

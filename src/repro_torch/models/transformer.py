@@ -38,7 +38,8 @@ Caches are written in place and returned; a recurrent layer without
 (the multi-token-prediction modules) is read by the training loss only.
 Training holds memory as the reference does: each scanned unit of
 ``cfg.segments()`` runs under ``torch.utils.checkpoint`` (``_REMAT =
-"block"``), the recurrent scans keep only time-chunk boundary carries
+"block"``; "dots" keeps the outputs of the no-batch matmuls), the
+recurrent scans keep only time-chunk boundary carries
 (``ssm.TIME_CHUNK``), and the loss is sequence-chunked (logits for 512
 tokens at a time, each chunk checkpointed), so a 256k-vocab train step
 never holds [B,T,V] logits.
@@ -52,12 +53,14 @@ over the text positions only.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -79,21 +82,52 @@ LOSS_CHUNK = 512
 
 # Rematerialisation policy for the training forward, as the reference's:
 # "block" checkpoints each scanned unit of ``cfg.segments()`` (its
-# activations are recomputed in the backward), "none" keeps everything.
-# The reference's "dots" (save matmul outputs only) belongs to the dry run
-# (ROADMAP A13).  A policy knob, not an architecture property.
+# activations are recomputed in the backward), "dots" checkpoints it too
+# but saves the outputs of its matmuls with no batch dimension (jax's
+# ``checkpoint_dots_with_no_batch_dims``: ``_dots_policy``), "none" keeps
+# everything.  A policy knob, not an architecture property.
 _REMAT = "block"
 
 
 def set_remat(mode: str) -> None:
     global _REMAT
-    if mode == "dots":
-        raise NotImplementedError(
-            "set_remat('dots') (checkpoint_dots_with_no_batch_dims) belongs "
-            "to the dry run, not ported yet (ROADMAP A13)")
-    if mode not in ("none", "block"):
+    if mode not in ("none", "block", "dots"):
         raise ValueError(mode)
     _REMAT = mode
+
+
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM_OPS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _no_batch_dot(func, args) -> bool:
+    """True for a matmul that is a dot with no batch dimension in jax's
+    sense: ``mm``/``addmm``, and a ``bmm``/``baddbmm`` whose batch is an
+    expansion of one operand (stride 0: ``[B,T,D] @ [D,F]`` through
+    ``matmul`` over an expanded weight).  A ``bmm`` over a real batch
+    (attention's ``bhqd,bhkd``, the experts' ``ecd,edf``) is a batched
+    dot."""
+    if func in _MM_OPS:
+        return True
+    if func in _BMM_OPS:
+        a, b = args[-2], args[-1]
+        return a.stride(0) == 0 or b.stride(0) == 0
+    return False
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if _no_batch_dot(func, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs() -> Dict[str, Any]:
+    """``torch.utils.checkpoint`` keywords of a scanned unit under
+    ``_REMAT`` ("block" or "dots")."""
+    if _REMAT == "dots":
+        return {"use_reentrant": False,
+                "context_fn": functools.partial(
+                    create_selective_checkpoint_contexts, _dots_policy)}
+    return {"use_reentrant": False}
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -415,15 +449,15 @@ def _run_segments(params, cfg: ArchConfig, h, *, positions, caches=None,
             aux_sum = aux_sum + aux
         return ACT.hidden(h), aux_sum
 
-    remat = torch.is_grad_enabled() and _REMAT == "block"
+    remat = torch.is_grad_enabled() and _REMAT != "none"
+    kw = _remat_kwargs() if remat else {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     first = 0
     for unit, reps in cfg.segments():
         auxs = []
         for _ in range(reps):
             if remat:
-                h, aux_sum = checkpoint(run_unit, h, first, unit,
-                                        use_reentrant=False)
+                h, aux_sum = checkpoint(run_unit, h, first, unit, **kw)
             else:
                 h, aux_sum = run_unit(h, first, unit)
             auxs.append(aux_sum)
