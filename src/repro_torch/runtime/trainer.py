@@ -42,6 +42,11 @@ One superstep, in the reference's order (trainer.py:355-417):
                each rank's shard, all-gather of the updated shards;
   barrier      one fsync token closes the superstep.
 
+The phases are spans (``runtime/spans.py``), recorded only while a
+``torch.profiler`` is active: ``bsp.step`` holds ``bsp.compute`` (compute
+and pack) and ``bsp.sync`` (the rest), which holds each bucket's
+``bsp.ef``, ``bsp.reduce_scatter``, ``bsp.zero1`` and ``bsp.all_gather``.
+
 To fit the card, the EF residual, the moments and the params are updated
 in place, and each bucket's gradient payload is dropped once it is
 reduced; the arithmetic is the reference's.
@@ -79,6 +84,7 @@ from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import quantization_error
+from repro_torch.runtime import spans
 from repro_torch.weights import reference_leaves
 
 
@@ -532,66 +538,76 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
         return sc[0], {k: sc[1 + j] for j, k in enumerate(keys)}, s_parts
 
     def step_fn(state: BSPTrainState, batch):
-        leaves = reference_leaves(state.params, cfg)
-        flat_params = [t for leaf in leaves for t in leaf.parts]
-        batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in BATCH_KEYS if k in batch}
+        with spans.step("bsp.step", state.step, dev):
+            leaves = reference_leaves(state.params, cfg)
+            flat_params = [t for leaf in leaves for t in leaf.parts]
+            batch = {k: torch.as_tensor(batch[k], device=dev)
+                     for k in BATCH_KEYS if k in batch}
 
-        # --- compute: every rank's gradients in the bucket layout
-        loss, metrics, g_parts = (shares_grads if shares is not None
-                                  else even_grads)(
-            state.params, leaves, flat_params, batch)
+            # --- compute: every rank's gradients in the bucket layout
+            with spans.span("bsp.compute"):
+                loss, metrics, g_parts = (shares_grads if shares is not None
+                                          else even_grads)(
+                    state.params, leaves, flat_params, batch)
 
-        # --- per bucket: EF → reduce-scatter → ZeRO-1 AdamW → all-gather
-        new_p_parts, om = [], {}
-        with torch.no_grad():
-            for bkt, schedule, c, wc, s_len, s_off in zip(
-                    engine.buckets, engine.schedules, bucket_codecs,
-                    wire_codecs, shard_lens, shard_offs):
-                g = g_parts[bkt.index]
-                g_parts[bkt.index] = None         # drop it once reduced
-                if c is not None:
-                    # EF-SGD, in place: corrected = g + res; the wire
-                    # carries corrected - quantization_error(corrected)
-                    res = state.ef_residual[:, bkt.offset:
-                                            bkt.offset + bkt.length]
-                    g.add_(res)
-                    new_res = quantization_error(g, c)
-                    res.copy_(new_res)
-                    g.sub_(new_res)
-                    del new_res
-                g_shard = engine.reduce_scatter_bucket(
-                    g, schedule, codec=wc) / world
-                del g
-                p_part = engine.pack_bucket(bkt, leaves, dtype=f32)
-                p_shard = p_part.view(world, s_len)[rev]
-                mu_b = state.flat_mu[:, s_off:s_off + s_len]
-                nu_b = state.flat_nu[:, s_off:s_off + s_len]
-                new_p, new_mu, new_nu, om = _adamw_flat(
-                    p_shard, g_shard, mu_b, nu_b, state.step, acfg)
-                mu_b.copy_(new_mu)
-                nu_b.copy_(new_nu)
-                del p_part, p_shard, g_shard, new_mu, new_nu
-                # publish: the all-gather inverts the bit-reversed scatter;
-                # every rank's row is the same, keep one
-                new_p_parts.append(engine.all_gather_bucket(new_p)[0].clone())
-                del new_p
+            # --- per bucket: EF → reduce-scatter → ZeRO-1 AdamW →
+            # all-gather
+            new_p_parts, om = [], {}
+            with spans.span("bsp.sync"), torch.no_grad():
+                for bkt, schedule, c, wc, s_len, s_off in zip(
+                        engine.buckets, engine.schedules, bucket_codecs,
+                        wire_codecs, shard_lens, shard_offs):
+                    i = bkt.index
+                    g = g_parts[i]
+                    g_parts[i] = None         # drop it once reduced
+                    if c is not None:
+                        # EF-SGD, in place: corrected = g + res; the wire
+                        # carries corrected - quantization_error(corrected)
+                        with spans.span("bsp.ef", bucket=i):
+                            res = state.ef_residual[:, bkt.offset:
+                                                    bkt.offset + bkt.length]
+                            g.add_(res)
+                            new_res = quantization_error(g, c)
+                            res.copy_(new_res)
+                            g.sub_(new_res)
+                            del new_res
+                    with spans.span("bsp.reduce_scatter", bucket=i):
+                        g_shard = engine.reduce_scatter_bucket(
+                            g, schedule, codec=wc) / world
+                        del g
+                    with spans.span("bsp.zero1", bucket=i):
+                        p_part = engine.pack_bucket(bkt, leaves, dtype=f32)
+                        p_shard = p_part.view(world, s_len)[rev]
+                        mu_b = state.flat_mu[:, s_off:s_off + s_len]
+                        nu_b = state.flat_nu[:, s_off:s_off + s_len]
+                        new_p, new_mu, new_nu, om = _adamw_flat(
+                            p_shard, g_shard, mu_b, nu_b, state.step, acfg)
+                        mu_b.copy_(new_mu)
+                        nu_b.copy_(new_nu)
+                        del p_part, p_shard, g_shard, new_mu, new_nu
+                    # publish: the all-gather inverts the bit-reversed
+                    # scatter; every rank's row is the same, keep one
+                    with spans.span("bsp.all_gather", bucket=i):
+                        new_p_parts.append(
+                            engine.all_gather_bucket(new_p)[0].clone())
+                        del new_p
 
-            for leaf, new in zip(leaves, engine.unpack(new_p_parts, leaves)):
-                for part, src in zip(leaf.parts,
-                                     new.reshape(len(leaf.parts), -1)):
-                    part.copy_(src.view(part.shape))
-            del new_p_parts
+                for leaf, new in zip(leaves,
+                                     engine.unpack(new_p_parts, leaves)):
+                    for part, src in zip(leaf.parts,
+                                         new.reshape(len(leaf.parts), -1)):
+                        part.copy_(src.view(part.shape))
+                del new_p_parts
 
-            # --- one fsync token closes the superstep
-            token = C.fractal_barrier(world, level=bsp.fsync_level,
-                                      device=dev)
-            domain = world if bsp.fsync_level is None \
-                else 1 << bsp.fsync_level
-            if not bool((token == domain).all()):
-                raise RuntimeError(f"fsync tokens {token.tolist()} != "
-                                   f"{domain}")
-        state.step += 1
+                # --- one fsync token closes the superstep
+                token = C.fractal_barrier(world, level=bsp.fsync_level,
+                                          device=dev)
+                domain = world if bsp.fsync_level is None \
+                    else 1 << bsp.fsync_level
+                if not bool((token == domain).all()):
+                    raise RuntimeError(f"fsync tokens {token.tolist()} != "
+                                       f"{domain}")
+            state.step += 1
         return state, dict(metrics, loss=loss, **om)
 
     def init_state(params) -> BSPTrainState:
