@@ -58,7 +58,17 @@ The quickest proof that the port starts on the card.  Phases, in order
                 subnormal and ±Inf keep values, aligned and unaligned
                 pointers), then timed with their plain versions and the
                 one-call library yardsticks at the train phase's largest
-                reduce hop.  The absorbed-MLA decode kernel (B8) against
+                reduce hop.  EF's kernel (the port's own, for the BSP
+                sync's ``bsp.ef``) against the eager sequence it replaced,
+                bit for bit with NaN equal to NaN (zero, -0, NaN, inf,
+                subnormal, tie and code-edge runs; strided residuals; each
+                case on its vector or scalar path), after a line on how
+                ``torch.addcmul`` rounds on the card; then, at the int8
+                benchmark cell's largest bucket laid out as the step lays
+                it (residual offsets past 2^31), kernel and eager sequence
+                compared bit for bit and timed beside the 16 B-an-element
+                bound.  The
+                absorbed-MLA decode kernel (B8) against
                 its plain version: r/dr 32/16 in f32 (block 16 and 4) and
                 512/64 in bf16 at H 4, 16 and 128, ragged lengths (1, 16,
                 17, 336, ...) over sentinel-padded tables, bf16 per output
@@ -103,7 +113,8 @@ The quickest proof that the port starts on the card.  Phases, in order
                 schedule, 256 MB buckets, global batch 8 x 1024 tokens,
                 3 steps with the bf16 wire codec, then 3 with int8.  Losses
                 are finite and each codec's kernel launched exactly
-                steps x buckets x log2(4) times; per-step time, tokens/s,
+                steps x buckets x log2(4) times, EF's kernel steps x
+                buckets times; per-step time, tokens/s,
                 peak memory, and the device idle share of one profiled
                 step; one real bucket of gradients reduce-scattered through
                 the kernels equals the same call through the plain
@@ -373,6 +384,28 @@ CODEC_INT8_NBS = [1, 3, 8192]
 # written (int8: one f32 scale per 128 elements)
 B1_BYTES_PER_ELEM = 4 + 2 + 4
 B2_BYTES_PER_ELEM = 4 + 1 + 4 / 128 + 4
+
+# EF in one pass (kernels/codec) vs the eager sequence it replaced on the
+# card: the same roundings, so equal bit for bit (NaN where it has NaN).
+# (codec, W, L, the residual's row stride (the state's width), its column
+# offset, g's offset in its storage, the path the case must take); the
+# second case of each codec has more chunks of 128 than the persistent grid
+# has warps (132 x 8 x 8), so warps take several; bf16's L 1000 and
+# 384,132 end in a short chunk.
+EF_CASES = [("int8", 4, 128 * 40, 128 * 42, 128, 0, "vector"),
+            ("int8", 4, 128 * 3001, 128 * 3004, 256, 0, "vector"),
+            ("int8", 2, 128 * 12, 128 * 12 + 3, 0, 0, "scalar"),
+            ("int8", 3, 128 * 12, 128 * 13, 128, 1, "scalar"),
+            ("bf16", 4, 1000, 1152, 128, 0, "vector"),
+            ("bf16", 4, 128 * 3001 + 4, 128 * 3004, 4, 0, "vector"),
+            ("bf16", 2, 1001, 1003, 1, 0, "scalar"),
+            ("bf16", 3, 130, 131, 0, 2, "scalar")]
+# timed at the int8 cell's largest bucket (qwen2.5-3b at 10 layers,
+# --bucket-mb 256, world 4: its last bucket), the residual that bucket's
+# columns of the [4, total] state; EF reads g and r and writes both
+EF_TIME_W, EF_TIME_L = 4, 311_164_928
+EF_TIME_TOTAL, EF_TIME_OFF = 1_081_936_896, 770_771_968
+EF_BYTES_PER_ELEM = 16
 
 # The train phase's one cut.  Per parameter the step holds 2 B of bf16
 # params, the [4, N] f32 gradients (16 B) and EF residual (16 B), and the
@@ -1478,6 +1511,238 @@ def phase_codec_timing(torch, tops, tref, codecs, M):
               f"({per:g} B/elem at {HBM_BYTES_PER_S:.3g} B/s); device time "
               f"per call from a CUDA graph of 3 calls")
     return res
+
+
+def _ef_runs(torch, codec, lead, dev):
+    """The runs of x = g + res that ``_ef_bucket`` plants (a block each
+    for int8, 8 elements each for bf16): 0, -0, NaN-led, inf-led (the rest
+    from ``lead``), subnormals, subnormals under a normal, ties and the
+    codes' edges, as one flat tensor."""
+    n = 128 if codec == "int8" else 8
+    k = torch.arange(n, dtype=torch.float32, device=dev)
+    lead = lead[:n].clone()
+    runs = [torch.zeros(n, device=dev), torch.full((n,), -0.0, device=dev),
+            torch.cat([lead[:1] * float("nan"), lead[1:]]),
+            torch.cat([lead[:1] * 0 + float("inf"), lead[1:]]),
+            3e-39 * torch.linspace(-1, 1, n, device=dev),
+            torch.where(k == 0, 1e-30, 1e-42),
+            torch.where(k == 0, 15.875, (k % 253 - 126 + 0.5) * 0.125),
+            torch.where(k == 0, -15.875, torch.tensor(
+                [15.875, -15.875, 15.8125, -15.8125], device=dev)[
+                    k.long() % 4])]
+    return torch.cat(runs)
+
+
+def _ef_bucket(torch, codec, W, L, rstride, res_off, g_off, seed, dev):
+    """g [W, L] (``g_off`` elements into its storage) and res, columns
+    ``res_off`` to ``res_off + L`` of a [W, rstride] state, on ``dev``:
+    gradient-like values and a 1e-3 residual, and in row 0 a run each
+    (int8: a block, bf16: 8) of x = g + res at 0, -0, NaN-led, inf-led,
+    subnormals, subnormals under a normal, ties (15.875 = 127 / 8 makes
+    the scale 1/8) and the codes' edges.  Returns (g, res, state)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(W, L, generator=gen, device=dev) * torch.exp(
+        2 * torch.randn(W, L, generator=gen, device=dev))
+    r = torch.randn(W, L, generator=gen, device=dev) * 1e-3
+    flat = _ef_runs(torch, codec, x[0], dev)[:L]
+    store = torch.zeros(W * L + g_off, device=dev)
+    g = store[g_off:].view(W, L)
+    g.copy_(x - r)
+    g[0, :flat.numel()] = flat
+    r[0, :flat.numel()] = -0.0
+    state = torch.zeros(W, rstride, device=dev)
+    res = state[:, res_off:res_off + L]
+    res.copy_(r)
+    return g, res, state
+
+
+def _nan_same(torch, a, b):
+    """Equal bits, except that any NaN equals any NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and _same_bits(
+        torch, torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+def _addcmul_rounding(torch, dev, n=1 << 20):
+    """How ``torch.addcmul(x, q, scale, value=-1)`` rounds on ``dev``:
+    the share of n elements equal to one fused multiply-add (from f64,
+    where the product is exact) and to a rounded product then a rounded
+    difference."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn(n, generator=gen, device=dev)
+    q = torch.randint(-127, 128, (n,), generator=gen, device=dev).float()
+    s = torch.rand(n, generator=gen, device=dev) * 0.05
+    got = torch.addcmul(x, q, s, value=-1)
+    fused = (x.double() - q.double() * s.double()).float()
+    two = x - q * s
+    return ((got == fused).float().mean().item(),
+            (got == two).float().mean().item())
+
+
+def phase_ef_kernels(torch, cops, cref, codecs, dev, cases=EF_CASES):
+    """EF's kernel (``cops.error_feedback_kernel``) against the eager
+    sequence (``cref.error_feedback_ref_``) on the same inputs: g' and the
+    whole residual state (the slice's neighbours too) bit for bit, NaN
+    where it has NaN; each case on its path, one launch on it.  Prints how
+    ``torch.addcmul`` rounds on the device.  Returns the launches by path
+    the cases made."""
+    fused, two = _addcmul_rounding(torch, dev)
+    print(f"  torch.addcmul(x, q, scale, value=-1) on {dev.type}: one fused "
+          f"multiply-add in {fused:.6f} of 2^20 elements, product rounded "
+          f"first in {two:.6f}")
+    made = {"vector": 0, "scalar": 0}
+    for codec, W, L, rstride, res_off, g_off, path in cases:
+        outs = []
+        for run in ("kernel", "eager"):
+            g, res, state = _ef_bucket(torch, codec, W, L, rstride, res_off,
+                                       g_off, L, dev)
+            if run == "kernel":
+                if cops.ef_path(g, res) != path:
+                    raise AssertionError(f"EF {codec} [{W}, {L}] takes the "
+                                         f"{cops.ef_path(g, res)} path, not "
+                                         f"{path}")
+                before = cops.EF_LAUNCHES_BY_PATH[path]
+                cops.error_feedback_kernel(g, res, codecs[codec])
+                if cops.EF_LAUNCHES_BY_PATH[path] != before + 1:
+                    raise AssertionError(f"EF {codec} [{W}, {L}]: not one "
+                                         f"launch on the {path} path")
+                made[path] += 1
+            else:
+                cref.error_feedback_ref_(g, res, codecs[codec])
+            _sync(torch, dev)
+            outs.append((g, state))
+        same = (_nan_same(torch, outs[0][0], outs[1][0])
+                and _nan_same(torch, outs[0][1], outs[1][1]))
+        nans = int(torch.isnan(outs[1][0]).sum())
+        print(f"  EF {codec} [{W}, {L}], residual row stride {rstride} "
+              f"({path}): g' and residual "
+              f"{'bit-identical' if same else 'DIFFER'} to the eager "
+              f"sequence ({nans} NaN in its g')")
+        if not same:
+            raise AssertionError(f"EF {codec} [{W}, {L}] ({path}) differs "
+                                 "from the eager sequence")
+    return made
+
+
+def phase_ef_bucket(torch, cops, cref, codecs, dev, W=EF_TIME_W,
+                    L=EF_TIME_L, total=EF_TIME_TOTAL, off=EF_TIME_OFF,
+                    seed=29):
+    """EF's kernel against the eager sequence at the int8 cell's largest
+    bucket, as the train step lays it out: g [W, L] and the residual
+    columns ``off`` to ``off + L`` of a zeroed [W, total] state, so that
+    the residual's offsets pass 2^31 (64-bit indexing).  Gradient-like
+    values with ``_ef_runs`` planted at the end of the last row (the
+    farthest addresses); the eager sequence runs on contiguous copies of
+    the same inputs.  For each codec: g' and the residual compared row by
+    row bit for bit, NaN where it has NaN, the state's other columns still
+    zero, one launch on the vector path; raises on any difference.
+    Returns the elements compared and the largest residual offset."""
+    out = dict(shape=[W, L], state=[W, total], offset=off, elements=0,
+               max_res_offset=(W - 1) * total + off + L - 1)
+    for codec in ("int8", "bf16"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        state = torch.zeros(W, total, device=dev)
+        res = state[:, off:off + L]
+        g = torch.empty(W, L, device=dev)
+        for i in range(W):
+            res[i].copy_(torch.randn(L, generator=gen, device=dev) * 1e-3)
+            g[i].normal_(generator=gen)
+        flat = _ef_runs(torch, codec, g[W - 1], dev)[:L]
+        g[W - 1, L - flat.numel():] = flat
+        res[W - 1, L - flat.numel():] = -0.0
+        g_e, r_e = g.clone(), res.clone()
+        _sync(torch, dev)
+        before = dict(cops.EF_LAUNCHES_BY_PATH)
+        cops.error_feedback_kernel(g, res, codecs[codec])
+        cref.error_feedback_ref_(g_e, r_e, codecs[codec])
+        _sync(torch, dev)
+        made = {p: cops.EF_LAUNCHES_BY_PATH[p] - before[p] for p in before}
+        if made != dict(vector=1, scalar=0):
+            raise AssertionError(f"EF {codec} [{W}, {L}]: launches by path "
+                                 f"{made}, want one on the vector path")
+        bad = [i for i in range(W)
+               if not (_nan_same(torch, g[i], g_e[i])
+                       and _nan_same(torch, res[i], r_e[i]))]
+        outside = [int(torch.count_nonzero(state[i, :off].view(torch.int32)))
+                   + int(torch.count_nonzero(
+                       state[i, off + L:].view(torch.int32)))
+                   for i in range(W)]
+        nans = int(torch.isnan(g_e).sum())
+        print(f"  EF {codec} [{W}, {L}] on columns {off}.. of a [{W}, "
+              f"{total}] state (residual offsets to "
+              f"{out['max_res_offset']:,}): g' and residual "
+              f"{'bit-identical' if not bad else 'DIFFER'} to the eager "
+              f"sequence ({nans} NaN in its g'), other columns "
+              f"{'untouched' if not any(outside) else 'WRITTEN'}")
+        if bad or any(outside):
+            raise AssertionError(f"EF {codec} [{W}, {L}] at offset {off} of "
+                                 f"[{W}, {total}]: rows {bad} differ from "
+                                 f"the eager sequence, {outside} elements "
+                                 f"written outside the bucket's columns")
+        out["elements"] += W * L
+        del g, res, state, g_e, r_e, flat
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _event_ms(torch, fn, reps):
+    """ms per call of ``fn()`` by CUDA events around ``reps`` calls after
+    one warm-up call (each call is milliseconds long: launch overhead is
+    out of it)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_ef_timing(torch, cops, cref, codecs, reps=3):
+    """EF's kernel and the eager sequence it replaced, in turns eager,
+    kernel, kernel, eager, at the int8 cell's largest bucket (g [4,
+    311,164,928], the residual its columns of the [4, total] state), for
+    each codec, beside the bound of 16 bytes an element at HBM's rate."""
+    dev = torch.device("cuda", 0)
+    W, L = EF_TIME_W, EF_TIME_L
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    state = torch.zeros(W, EF_TIME_TOTAL, device=dev)
+    res = state[:, EF_TIME_OFF:EF_TIME_OFF + L]
+    res.copy_(torch.randn(W, L, generator=gen, device=dev) * 1e-3)
+    g = torch.randn(W, L, generator=gen, device=dev)
+    bound = W * L * EF_BYTES_PER_ELEM / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for codec in ("int8", "bf16"):
+        c = codecs[codec]
+        fns = {"kernel": lambda: cops.error_feedback_kernel(g, res, c),
+               "plain": lambda: cref.error_feedback_ref_(g, res, c)}
+        t = {label: _event_ms(torch, fns[label.rstrip("2")], reps)
+             for label in ("plain", "kernel", "kernel2", "plain2")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms = min(t["kernel"], t["kernel2"])
+        out[codec] = r = dict(ms=ms, plain_ms=min(t["plain"], t["plain2"]),
+                              bound_ms=bound, bound_by="bytes",
+                              roofline_pct=100 * bound / ms,
+                              path=cops.ef_path(g, res), shape=[W, L])
+        print(f"  EF {codec} [{W}, {L}] ({r['path']}): kernel "
+              f"{ms:.4f} ms ({r['roofline_pct']:.2f} % of the bound), eager "
+              f"sequence {r['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"({EF_BYTES_PER_ELEM} B/elem at {HBM_BYTES_PER_S:.3g} B/s); "
+              f"CUDA events over {reps} calls, in turns")
+    del g, res, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2876,12 +3141,14 @@ def train_engine(cfg, codec):
                       args.devices, force_dtype=torch.float32)
 
 
-def phase_train(torch, tops, cfg, first_losses=None):
+def phase_train(torch, tops, cfg, first_losses=None, ef_launches=None):
     """The main path: ``launch.train.run`` with each codec; the counts are
     set to 0 just before each run and read just after.  Returns each
     codec's launch count; ``first_losses`` (a dict), when given, gets each
-    run's step-0 loss."""
+    run's step-0 loss, and ``ef_launches`` (a dict) each run's launches of
+    EF's kernel (steps x buckets on the card, all on the vector path)."""
     import numpy as np
+    from repro_torch.kernels.codec import ops as cops
     from repro_torch.launch import train as train_cli
     launches = {}
     for codec in ("bf16", "int8"):
@@ -2893,7 +3160,11 @@ def phase_train(torch, tops, cfg, first_losses=None):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         tops.BF16_LAUNCHES = tops.INT8_LAUNCHES = 0
+        cops.EF_LAUNCHES.update(int8=0, bf16=0)
+        cops.EF_LAUNCHES_BY_PATH.update(vector=0, scalar=0)
         out = train_cli.run(cfg, args)
+        ef = cops.EF_LAUNCHES[codec]
+        ef_by_path = dict(cops.EF_LAUNCHES_BY_PATH)
         counts = {"bf16": tops.BF16_LAUNCHES, "int8": tops.INT8_LAUNCHES}
         peak = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
@@ -2910,16 +3181,27 @@ def phase_train(torch, tops, cfg, first_losses=None):
                 f"{codec}: launches {counts}, want {want} of decode_add_"
                 f"{codec} (= {args.steps} steps x {n_b} buckets x "
                 f"log2({args.devices})) and none of the other")
+        # EF: one kernel launch a bucket a step on the card, each on the
+        # vector path, none on the CPU
+        want_ef = args.steps * n_b if dev.type == "cuda" else 0
+        if (ef != want_ef or sum(cops.EF_LAUNCHES.values()) != ef
+                or ef_by_path != dict(vector=want_ef, scalar=0)):
+            raise AssertionError(f"{codec}: EF launches {cops.EF_LAUNCHES} "
+                                 f"by path {ef_by_path}, want {want_ef} of "
+                                 f"{codec}, all vector")
         tokens = args.batch * args.seq
         for h in hist:
             print(f"  {codec} step {h['step']}: loss {h['loss']:.4f}, "
                   f"{h['sec']:.3f} s, {tokens / h['sec']:.0f} tokens/s")
         print(f"  {codec}: {counts[codec]} decode_add_{codec} launches = "
-              f"{args.steps} steps x {n_b} buckets x {hops} hops; peak "
-              f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
+              f"{args.steps} steps x {n_b} buckets x {hops} hops; {ef} EF "
+              f"launches; peak memory {peak / 2**30:.2f} GiB "
+              f"({peak / 1e9:.1f} GB)")
         launches[codec] = counts[codec]
         if first_losses is not None:
             first_losses[codec] = losses[0]
+        if ef_launches is not None:
+            ef_launches[codec] = ef
         del out
     return launches
 
@@ -4793,7 +5075,13 @@ def _ptxas_summary(log: str):
                               m.group(1))
             ring = re.search(r"ring_pass_kernelI([fta])([ft])Li(\d)ELb([01])",
                              m.group(1))
-            if ring is not None:       # B3/B4's ring: <in->out,levels>
+            ef = re.search(r"error_feedback_kernelILi([01])ELb([01])E",
+                           m.group(1))
+            if ef is not None:         # EF: <codec, vector?>
+                label = (f" error_feedback_kernel<"
+                         f"{('bf16', 'int8')[int(ef.group(1))]},"
+                         f"{('scalar', 'vec')[int(ef.group(2))]}>")
+            elif ring is not None:     # B3/B4's ring: <in->out,levels>
                 io = {"f": "f32", "t": "bf16", "a": "int8"}
                 label = (f" ring_pass_kernel<{io[ring.group(1)]}->"
                          f"{io[ring.group(2)]},{ring.group(3)}>")
@@ -4945,7 +5233,30 @@ def calibrate_runs(torch) -> int:
     return 0
 
 
+def ef_timings(torch) -> int:
+    """``--ef-timings SRC``: EF's kernel held to the eager sequence
+    (``phase_ef_kernels``), then both timed at the int8 cell's largest
+    bucket (``phase_ef_timing``), with the kernel of the checkout whose
+    ``src/`` is first on the path."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.codec import ops as cops, ref as cref
+    from repro_torch.optim.compression import Bf16Codec, Int8Codec
+    codecs = {"bf16": Bf16Codec(), "int8": Int8Codec()}
+    build.build(["error_feedback"])
+    for line in _ptxas_summary(build.build_log("error_feedback")):
+        print(f"  ptxas error_feedback{line}")
+    made = phase_ef_kernels(torch, cops, cref, codecs,
+                            torch.device("cuda", 0))
+    full = phase_ef_bucket(torch, cops, cref, codecs, torch.device("cuda", 0))
+    res = phase_ef_timing(torch, cops, cref, codecs)
+    print(json.dumps({"ef_timings": cops.__file__, "launches": made,
+                      "bucket_check": full, **res}))
+    print(_smi())
+    return 0
+
+
 TIMINGS = {"--decode-timings": decode_timings,
+           "--ef-timings": ef_timings,
            "--tree-timings": tree_timings,
            "--remat-timings": remat_timings,
            "--calibrate-runs": calibrate_runs}
@@ -4967,6 +5278,7 @@ def main(argv=None) -> int:
     if timings:
         return timings(torch)
     from repro_torch.kernels import build
+    from repro_torch.kernels.codec import ops as cops, ref as cref
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.gemm import ops as gops, ref as gref
     from repro_torch.kernels.paged_attention import ops, ref
@@ -5017,6 +5329,11 @@ def main(argv=None) -> int:
     plan = train_engine(cfg8, "int8")
     hop = plan.world * max(b.length for b in plan.buckets) // 2
     codec_timing = phase_codec_timing(torch, tops, tref, codecs, hop)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ef_made = phase_ef_kernels(torch, cops, cref, codecs, dev)
+    ef_full = phase_ef_bucket(torch, cops, cref, codecs, dev)
+    ef_timing = phase_ef_timing(torch, cops, cref, codecs)
     ds = ds_config()
     mla_err, mla_rel = phase_mla_kernels(torch, ops, ref, dev)
     mla_timing = phase_mla_timing(torch, ops, ref, ds)
@@ -5116,8 +5433,9 @@ def main(argv=None) -> int:
 
     print(f"[5] train gemma2-2b ({cfg8.num_layers} of 26 layers) at world "
           f"{plan.world}", flush=True)
-    first_losses = {}
-    train_launches = phase_train(torch, tops, cfg8, first_losses)
+    first_losses, ef_launches = {}, {}
+    train_launches = phase_train(torch, tops, cfg8, first_losses,
+                                 ef_launches)
     phase_train_profile(torch, cfg8, tref, codecs)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5292,6 +5610,12 @@ def main(argv=None) -> int:
             calibrate_launches=cal_launches[codec],
             max_abs_err=codec_err[codec], elements=hop,
             **codec_timing[codec]))
+    kernels.append(dict(
+        name="error_feedback", route="cuda",
+        source="src/repro_torch/kernels/codec/csrc/error_feedback.cu",
+        replaces=None, launches=ef_launches, check_launches=ef_made,
+        bucket_check=ef_full, bf16=ef_timing["bf16"],
+        int8=ef_timing["int8"]))
     kernels.append(dict(
         name="paged_mla_attention", route="cuda",
         source="src/repro_torch/kernels/paged_attention/csrc/"

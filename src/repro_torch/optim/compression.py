@@ -14,8 +14,11 @@ exactly (q ``[M/128, 128]``, scale ``[M/128, 1]``).
 Rounding follows the reference as it runs, i.e. under ``jit``, where XLA
 rewrites ``max|x| / 127.0`` to ``max|x| * f32(1/127)`` and contracts
 ``x - f32(q) * scale`` into one fused multiply-add.  The port spells both
-out (the multiply by the f32 reciprocal, ``torch.addcmul``), so codes,
-scales and residuals are equal to the jitted reference bit for bit.
+out (the multiply by the f32 reciprocal, ``torch.addcmul``), so on the CPU
+codes, scales and residuals are equal to the jitted reference bit for bit.
+On CUDA ``torch.addcmul`` rounds the product before the difference, so
+there the int8 residual is rounded twice and may sit an ulp from the
+reference's; codes and scales are still equal (ROADMAP C13).
 """
 
 from __future__ import annotations
@@ -84,8 +87,10 @@ class Int8Codec(Codec):
 
 def quantization_error(x: torch.Tensor, codec: Codec) -> torch.Tensor:
     """x − dequant(quant(x)): the residual EF carries to the next step.
-    For int8 this is ``fma(-f32(q), scale, x)``, one rounding, as the
-    jitted reference computes it."""
+    For int8 this is ``torch.addcmul(x, f32(q), scale, value=-1)``: on
+    the CPU ``fma(-f32(q), scale, x)``, one rounding, as the jitted
+    reference computes it; on CUDA the product rounded first, then the
+    difference (ROADMAP C13)."""
     wire = codec.encode(x)
     if isinstance(codec, Int8Codec):
         xb = codec._blocks(x)

@@ -34,9 +34,11 @@ One superstep, in the reference's order (trainer.py:355-417):
                so ``.backward()`` would add their gradients together;
   pack         rank r's gradients into row r of each bucket, in the
                reference's leaf order (``weights.reference_leaves``);
-  per bucket   EF on the codec'd buckets (``corrected - res``, literally),
-               reduce-scatter with the bucket's schedule (the fractal one
-               with the wire codec on every halving hop: the B1/B2
+  per bucket   EF on the codec'd buckets (``corrected - res``, literally;
+               ``kernels/codec``: one kernel launch a bucket on the card,
+               the eager sequence on the CPU), reduce-scatter with the
+               bucket's schedule (the fractal one with the wire codec on
+               every halving hop: the B1/B2
                decode-add kernels on the card; any other through its
                Schedule-IR all-reduce and a slice), ZeRO-1 AdamW on
                each rank's shard, all-gather of the updated shards;
@@ -79,11 +81,11 @@ from repro_torch.core import collectives as C
 from repro_torch.core.bsp import BSPConfig
 from repro_torch.core.superstep import engine_for
 from repro_torch.device import resolve_device
+from repro_torch.kernels.codec import ops as codec_ops
 from repro_torch.models import act_sharding as ACT
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
-from repro_torch.optim.compression import quantization_error
 from repro_torch.runtime import spans
 from repro_torch.weights import reference_leaves
 
@@ -563,14 +565,12 @@ def make_bsp_train_step(cfg: ArchConfig, acfg: adamw.AdamWConfig,
                     if c is not None:
                         # EF-SGD, in place: corrected = g + res; the wire
                         # carries corrected - quantization_error(corrected)
+                        # (one kernel launch on the card)
                         with spans.span("bsp.ef", bucket=i):
-                            res = state.ef_residual[:, bkt.offset:
-                                                    bkt.offset + bkt.length]
-                            g.add_(res)
-                            new_res = quantization_error(g, c)
-                            res.copy_(new_res)
-                            g.sub_(new_res)
-                            del new_res
+                            codec_ops.error_feedback_(
+                                g, state.ef_residual[:, bkt.offset:
+                                                     bkt.offset + bkt.length],
+                                c)
                     with spans.span("bsp.reduce_scatter", bucket=i):
                         g_shard = engine.reduce_scatter_bucket(
                             g, schedule, codec=wc) / world

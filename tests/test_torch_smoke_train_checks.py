@@ -82,8 +82,10 @@ def test_train_phase_counts_every_reduce_hop(smoke, no_sync, monkeypatch,
         "--steps", str(smoke.TRAIN_STEPS), "--batch", "8", "--seq", "32",
         "--schedule", "fractal", "--bucket-mb", "0.25", "--seed", "0"])
     cfg = get_config("gemma2-2b-smoke")
-    launches = smoke.phase_train(torch, tops, cfg)
+    ef = {}
+    launches = smoke.phase_train(torch, tops, cfg, ef_launches=ef)
     n_b = smoke.train_engine(cfg, "int8").n_buckets
     assert n_b > 1
     assert launches == {"bf16": 3 * n_b * 2, "int8": 3 * n_b * 2}
+    assert ef == {"bf16": 0, "int8": 0}         # EF's kernel: card only
     assert "decode_add_int8 launches" in capsys.readouterr().out
