@@ -39,25 +39,25 @@ def main(argv=None) -> int:
     from portbench.reference import bsp as ref
     cell = harness.load_cell(args.workload)
     dev = torch.device("cuda")
-    spec = D.model_spec(cell.config)
+    model = ref.Model.of(cell.config)
     for i, seed in enumerate(args.seeds):
         t0 = time.monotonic()
-        batches = ref.make_batches(spec, cell.traffic, seed, D.FIRST_STEPS,
+        batches = ref.make_batches(model, cell.traffic, seed, D.FIRST_STEPS,
                                    dev)
-        step_fn, state = D.build_step(cell, spec, seed, dev)
-        prog = D.first_steps(step_fn, state, spec, cell, seed, batches, dev)
+        step_fn, state = D.build_step(cell, model, seed, dev)
+        prog = D.first_steps(step_fn, state, model, cell, seed, batches, dev)
         del step_fn, state
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.monotonic()
-        expect = ref.run(spec, cell.traffic, seed, batches, dev)
+        expect = ref.run(model, cell.traffic, seed, batches, dev)
         out = {"seed": seed, "program": ref.compare(prog, expect),
                "losses": {"program": prog.losses, "reference": expect.losses},
                "seconds": {"program": t1 - t0,
                            "reference": time.monotonic() - t1}}
         if i < args.variant_seeds:
             for v in VARIANTS:
-                got = ref.run(spec, cell.traffic, seed, batches, dev,
+                got = ref.run(model, cell.traffic, seed, batches, dev,
                               variant=v)
                 out[v] = dict(ref.compare(got, expect), losses=got.losses)
         print(json.dumps(out), flush=True)

@@ -12,11 +12,14 @@ each step ending as the train loop's does (synchronised, the loss read
 back).  ``--trace 1`` profiles a few more steps after the window.  Once
 the program is freed, the plain reference (``reference/bsp.py``) runs the
 first steps again and the readings are compared.
+
+Nothing here knows the model: the configuration's ``family`` names
+``reference/<family>.py`` (weights, layout, loss, FLOPs) and
+``families/<family>.py`` (the port's config).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import importlib
 import math
@@ -30,7 +33,6 @@ import torch
 from portbench import counts, harness, trace
 from portbench.peaks import H100_SXM
 from portbench.reference import bsp as ref
-from portbench.reference.lm import ModelSpec
 
 # steps of set-up the comparison reads, distinct batches the window cycles,
 # and steps the traced run profiles
@@ -39,31 +41,11 @@ BATCH_POOL = 8
 PROFILE_STEPS = 3
 
 
-def model_spec(config: dict) -> ModelSpec:
-    fam = importlib.import_module(f"portbench.reference.{config['family']}")
-    return fam.spec(config)
-
-
-def program_config(config: dict, spec: ModelSpec):
-    """The port's config of the cell: its registry entry with the widths
-    and depth of the configuration file; what the file cannot set (biases,
-    MLP, positions, tying) has to agree with it."""
-    from repro_torch.models.registry import get_config
-    base = get_config(config["port_arch"])
-    cfg = dataclasses.replace(
-        base, num_layers=spec.n_layers, layer_pattern=(),
-        d_model=spec.d_model, num_heads=spec.n_heads,
-        num_kv_heads=spec.n_kv_heads, head_dim=spec.head_dim,
-        d_ff=spec.d_ff, vocab_size=spec.vocab, norm_eps=spec.norm_eps,
-        rope_theta=spec.rope_theta, param_dtype=spec.param_dtype)
-    want = {"qkv_bias": spec.qkv_bias, "tie_embeddings": spec.tied,
-            "mlp": "swiglu", "pos_embed": "rope", "frontend": None,
-            "prefix_lm": False}
-    have = {k: getattr(cfg, k) for k in want}
-    if have != want:
-        raise ValueError(f"{config['name']}: the port's {base.name} has "
-                         f"{have}, the configuration {want}")
-    return cfg
+def program_config(config: dict, model: ref.Model):
+    """The port's config of the cell, from the family's mapping
+    (``families/<family>.py``)."""
+    fam = importlib.import_module(f"portbench.families.{config['family']}")
+    return fam.program_config(config, model.spec)
 
 
 def _paths(tree, prefix=""):
@@ -104,14 +86,14 @@ def program_params(cfg, weights: Dict[str, torch.Tensor]):
     return fill(tree)
 
 
-def build_step(cell, spec: ModelSpec, seed: int, device):
+def build_step(cell, model: ref.Model, seed: int, device):
     """``(step_fn, state)`` as the train CLI builds them for the traffic's
     flags, on the benchmark's weights."""
     from repro_torch.launch.train import bsp_config, parse_args
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime import trainer
     t = cell.traffic
-    cfg = program_config(cell.config, spec)
+    cfg = program_config(cell.config, model)
     args = parse_args(["--arch", cell.config["port_arch"], "--device",
                        device.type, "--devices", str(t["world"]),
                        "--schedule", t["schedule"], "--bucket-mb",
@@ -125,7 +107,7 @@ def build_step(cell, spec: ModelSpec, seed: int, device):
                        min_lr_ratio=t["min_lr_ratio"])
     step_fn, init_state = trainer.make_bsp_train_step(
         cfg, acfg, bsp_config(args), t["world"], device=device)
-    params = program_params(cfg, ref.make_weights(spec, seed, device))
+    params = program_params(cfg, ref.make_weights(model, seed, device))
     return step_fn, init_state(params)
 
 
@@ -134,11 +116,11 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def first_steps(step_fn, state, spec, cell, seed, batches, device
-                ) -> ref.Readings:
+def first_steps(step_fn, state, model: ref.Model, cell, seed, batches,
+                device) -> ref.Readings:
     """Drive the step through the first batches, reading what the
     comparison needs from the program's own state."""
-    layout = ref.Layout(spec, cell.traffic["world"],
+    layout = ref.Layout(model, cell.traffic["world"],
                         cell.traffic["bucket_mb"])
     out = ref.Readings()
     for i, batch in enumerate(batches):
@@ -149,7 +131,7 @@ def first_steps(step_fn, state, spec, cell, seed, batches, device
             out.grad_norm, out.grad_rms = ref.program_grad_norms(
                 state.flat_mu, layout, cell.traffic["beta1"])
     out.change_norm = ref.change_norms(
-        dict(_paths(state.params)), spec, seed)
+        dict(_paths(state.params)), model, seed)
     return out
 
 
@@ -158,14 +140,14 @@ def run(cell, args, device, t0: float) -> dict:
     "checks": the compared numbers with their limits, "correct": ...}``."""
     t = cell.traffic
     marks = [("start", t0), ("imports", time.monotonic())]
-    spec = model_spec(cell.config)
-    step_fn, state = build_step(cell, spec, args.seed, device)
-    batches = ref.make_batches(spec, t, args.seed, FIRST_STEPS + BATCH_POOL,
+    model = ref.Model.of(cell.config)
+    step_fn, state = build_step(cell, model, args.seed, device)
+    batches = ref.make_batches(model, t, args.seed, FIRST_STEPS + BATCH_POOL,
                                device)
     first, pool = batches[:FIRST_STEPS], batches[FIRST_STEPS:]
     _sync(device)
     marks.append(("weights, step and state", time.monotonic()))
-    readings = first_steps(step_fn, state, spec, cell, args.seed, first,
+    readings = first_steps(step_fn, state, model, cell, args.seed, first,
                            device)
     marks.append(("first steps and readings", time.monotonic()))
     setup_s = time.monotonic() - t0
@@ -207,14 +189,15 @@ def run(cell, args, device, t0: float) -> dict:
             state, m = step_fn(state, pool[0])
             float(m["loss"])
         tr = trace.profile(one, PROFILE_STEPS)
-        layout = ref.Layout(spec, t["world"], t["bucket_mb"])
+        layout = ref.Layout(model, t["world"], t["bucket_mb"])
         codec = t["bucket_codec"]
         ctx = SimpleNamespace(
-            trace=tr, flops=counts.train_flops(spec, t),
+            trace=tr, flops=model.family.train_flops(model.spec, t),
             window_steps=n, window_s=window_s,
             profiled_steps=len(tr.step_seconds), peaks=H100_SXM,
             decode_add_bytes={codec: counts.decode_add_bytes(layout, codec)}
-            if codec in counts.DECODE_ADD_BYTES else {})
+            if codec in counts.DECODE_ADD_BYTES else {},
+            error_feedback_bytes=counts.error_feedback_bytes(layout))
         metrics = {}
         for m_ in harness.metrics_of(cell.name, "per_layer", bench):
             v = harness.reader(m_["name"])(ctx)
@@ -236,7 +219,7 @@ def run(cell, args, device, t0: float) -> dict:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    expect = ref.run(spec, t, args.seed, first, device)
+    expect = ref.run(model, t, args.seed, first, device)
     found = ref.compare(readings, expect)
     checks = {k: dict(found[k], limit=lim) for k, lim in cell.limits.items()}
     correct = harness.within(checks) and failed == 0

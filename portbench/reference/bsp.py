@@ -1,12 +1,29 @@
 """The plain reference of one BSP training superstep, and the readings the
 benchmark compares.
 
+The model is a ``Model``: the configuration's family module
+(``reference/<family>.py``) and its spec.  This module calls the family
+for everything model-specific and reads only ``name``, ``vocab`` and
+``param_dtype`` of the spec.  A family module provides
+
+* ``spec(config)``: its spec of a configuration file;
+* ``param_leaves(spec)``: every parameter as ``(name, shape, init)``,
+  named as the program's parameter tree (``layers/<i>/...`` for layer i,
+  in layer order);
+* ``segments(spec)``: ``((unit length, repeats), ...)``, the homogeneous
+  units the program stacks the layers in, in layer order;
+* ``loss(params, spec, batch, quant)``: the mean loss of a batch;
+* ``train_flops(spec, traffic)``: ``{"matmul", "attention", "total"}``
+  FLOPs of one step;
+* ``small(config)``: the configuration cut to a CPU test size.
+
 Worked out again from the configuration and the cell's own parameters,
 independent of the program under test:
 
-* ``Layout``: the flat f32 gradient layout.  Parameter leaves in sorted
-  path order, each layer's tensors stacked over the layers (a leaf is its
-  layers' tensors end to end); buckets filled greedily in REVERSE leaf
+* ``Layout``: the flat f32 gradient layout.  Top-level parameter leaves
+  and one leaf per tensor of each unit entry ``segments/<s>/l<j>/...``,
+  stacked over the unit's repeats (a leaf is its layers' tensors end to
+  end), in sorted path order; buckets filled greedily in REVERSE leaf
   order up to ``bucket_mb`` MB of f32 (a larger leaf alone), each padded to
   a multiple of ``world * 128`` elements.  After the reduce-scatter rank
   ``r`` holds the bucket's chunk ``rev(r)`` (the bit-reversal of r).
@@ -33,14 +50,14 @@ to their limits.
 from __future__ import annotations
 
 import hashlib
+import importlib
 import math
 import statistics
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from types import ModuleType
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
-
-from portbench.reference import lm
 
 F32 = torch.float32
 INT8_BLOCK = 128
@@ -48,8 +65,22 @@ PAD_ALIGN = 128
 
 
 # ---------------------------------------------------------------------------
-# the flat layout
+# the model and its flat layout
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Model:
+    """A configuration's family module and the family's spec of it."""
+
+    family: ModuleType
+    spec: Any
+
+    @classmethod
+    def of(cls, config: dict) -> "Model":
+        fam = importlib.import_module(
+            f"portbench.reference.{config['family']}")
+        return cls(fam, fam.spec(config))
 
 
 @dataclass(frozen=True)
@@ -71,32 +102,36 @@ def _path_key(name: str):
     return tuple(name.split("/"))
 
 
-def stacked_leaves(spec: lm.ModelSpec) -> List[Tuple[str, List[str]]]:
-    """``(leaf path, [parameter names])`` in the flat order: top-level
-    leaves and one leaf per layer tensor stacked over the layers, sorted by
-    path (``segments`` sorts after ``embed``, ``final_norm`` and
-    ``head``)."""
-    top, per_layer = [], {}
-    for name, _shape, _init in lm.param_leaves(spec):
+def stacked_leaves(model: Model) -> List[Tuple[str, List[str]]]:
+    """``(leaf path, [parameter names])`` in the flat order: each top-level
+    leaf alone, and one leaf per tensor of each unit entry j of segment s,
+    ``segments/<s>/l<j>/...``, its parts the layers that repeat the entry;
+    sorted by path (segments by number, ``segments`` after ``embed``,
+    ``final_norm`` and ``head``)."""
+    entry = []      # layer i -> (segment, unit entry)
+    for s, (unit, reps) in enumerate(model.family.segments(model.spec)):
+        entry += [(s, j) for _ in range(reps) for j in range(unit)]
+    top, stacked = [], {}
+    for name, _shape, _init in model.family.param_leaves(model.spec):
         parts = name.split("/")
         if parts[0] == "layers":
-            per_layer.setdefault("/".join(parts[2:]), []).append(name)
+            s, j = entry[int(parts[1])]
+            key = ("segments", s, f"l{j}") + tuple(parts[2:])
+            stacked.setdefault(key, []).append(name)
         else:
-            top.append((name, [name]))
-    stacked = [(("segments", "0", "l0") + _path_key(sub), names)
-               for sub, names in per_layer.items()]
-    items = [(_path_key(n), parts) for n, parts in top] + stacked
+            top.append((_path_key(name), [name]))
+    items = top + list(stacked.items())
     items.sort(key=lambda t: t[0])
-    return [("/".join(k), parts) for k, parts in items]
+    return [("/".join(map(str, k)), parts) for k, parts in items]
 
 
 class Layout:
     """Buckets, shards and every parameter's place in them."""
 
-    def __init__(self, spec: lm.ModelSpec, world: int, bucket_mb: float):
+    def __init__(self, model: Model, world: int, bucket_mb: float):
         self.world = world
-        shapes = {n: s for n, s, _ in lm.param_leaves(spec)}
-        leaves = stacked_leaves(spec)
+        shapes = {n: s for n, s, _ in model.family.param_leaves(model.spec)}
+        leaves = stacked_leaves(model)
         sizes = [sum(math.prod(shapes[p]) for p in parts)
                  for _, parts in leaves]
         bound = max(1, int(bucket_mb * 1e6 / 4))
@@ -147,12 +182,13 @@ def _subseed(seed: int, tag: str) -> int:
     return int.from_bytes(h[:8], "little") & ((1 << 63) - 1)
 
 
-def init_groups(spec: lm.ModelSpec):
+def init_groups(model: Model):
     """``(leaf path, [names], shape of one, init)`` of every stacked leaf:
     the unit the weights are drawn in, one ``randn`` call each."""
-    info = {n: (s, init) for n, s, init in lm.param_leaves(spec)}
+    info = {n: (s, init)
+            for n, s, init in model.family.param_leaves(model.spec)}
     return [(path, names) + info[names[0]]
-            for path, names in stacked_leaves(spec)]
+            for path, names in stacked_leaves(model)]
 
 
 def init_group(group, seed: int, device, dtype) -> torch.Tensor:
@@ -170,13 +206,13 @@ def init_group(group, seed: int, device, dtype) -> torch.Tensor:
     return w.mul_(init).to(dtype)
 
 
-def make_weights(spec: lm.ModelSpec, seed: int, device,
+def make_weights(model: Model, seed: int, device,
                  dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Every parameter, one tensor of its own each, in ``dtype`` (default:
     the configuration's ``param_dtype``)."""
-    dtype = dtype or getattr(torch, spec.param_dtype)
+    dtype = dtype or getattr(torch, model.spec.param_dtype)
     out = {}
-    for group in init_groups(spec):
+    for group in init_groups(model):
         w = init_group(group, seed, device, dtype)
         for i, name in enumerate(group[1]):
             out[name] = w[i].clone()
@@ -184,7 +220,7 @@ def make_weights(spec: lm.ModelSpec, seed: int, device,
     return out
 
 
-def make_batches(spec: lm.ModelSpec, traffic: dict, seed: int, n: int,
+def make_batches(model: Model, traffic: dict, seed: int, n: int,
                  device) -> List[Dict[str, torch.Tensor]]:
     """``n`` global batches, drawn in order from one generator: token ids
     uniform over the vocabulary (``tokens`` and the next-token ``labels``,
@@ -194,7 +230,7 @@ def make_batches(spec: lm.ModelSpec, traffic: dict, seed: int, n: int,
     B, T = traffic["global_batch"], traffic["seq_len"]
     out = []
     for _ in range(n):
-        ids = torch.randint(0, spec.vocab, (B, T + 1), generator=gen,
+        ids = torch.randint(0, model.spec.vocab, (B, T + 1), generator=gen,
                             device=device)
         out.append({"tokens": ids[:, :-1].contiguous(),
                     "labels": ids[:, 1:].contiguous()})
@@ -309,13 +345,13 @@ def _norms_of(sq: Dict[str, torch.Tensor], layout: Layout
     return norm, rms
 
 
-def change_norms(params: Dict[str, torch.Tensor], spec: lm.ModelSpec,
+def change_norms(params: Dict[str, torch.Tensor], model: Model,
                  seed: int) -> Dict[str, float]:
     """||p - p0|| of every parameter, p0 drawn again from the seed (in the
     configuration's dtype, as both sides started from it)."""
-    dtype = getattr(torch, spec.param_dtype)
+    dtype = getattr(torch, model.spec.param_dtype)
     out = {}
-    for group in init_groups(spec):
+    for group in init_groups(model):
         dev = params[group[1][0]].device
         w0 = init_group(group, seed, dev, dtype)
         sq = torch.stack([(params[n].detach().double() - w0[i].double())
@@ -355,7 +391,7 @@ def program_grad_norms(flat_mu: torch.Tensor, layout: Layout, beta1: float
 # ---------------------------------------------------------------------------
 
 
-def run(spec: lm.ModelSpec, traffic: dict, seed: int,
+def run(model: Model, traffic: dict, seed: int,
         batches: Sequence[Dict[str, torch.Tensor]], device,
         variant: Optional[str] = None) -> Readings:
     """The reference's first ``len(batches)`` steps from the seed's
@@ -366,8 +402,8 @@ def run(spec: lm.ModelSpec, traffic: dict, seed: int,
     gradient alone)."""
     W = traffic["world"]
     codec = traffic["bucket_codec"]
-    layout = Layout(spec, W, traffic["bucket_mb"])
-    dtype = getattr(torch, spec.param_dtype)
+    layout = Layout(model, W, traffic["bucket_mb"])
+    dtype = getattr(torch, model.spec.param_dtype)
     quant = "fp8" if variant == "fp8" else None
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -375,7 +411,7 @@ def run(spec: lm.ModelSpec, traffic: dict, seed: int,
     torch.backends.cudnn.allow_tf32 = False
     try:
         params = {n: t.to(F32).requires_grad_(True) for n, t in
-                  make_weights(spec, seed, device, dtype).items()}
+                  make_weights(model, seed, device, dtype).items()}
         names = list(params)
         mu = [torch.zeros(b.length, dtype=F32, device=device)
               for b in layout.buckets]
@@ -393,7 +429,7 @@ def run(spec: lm.ModelSpec, traffic: dict, seed: int,
             losses = []
             for r in range(W):
                 mb = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-                loss = lm.loss(params, spec, mb, quant)
+                loss = model.family.loss(params, model.spec, mb, quant)
                 grads = torch.autograd.grad(loss, [params[n] for n in names])
                 for n, gr in zip(names, grads):
                     bi, s = layout.where[n]
@@ -438,7 +474,7 @@ def run(spec: lm.ModelSpec, traffic: dict, seed: int,
             if step == 0:
                 out.grad_norm, out.grad_rms = _norms_of(sq, layout)
             del g
-        out.change_norm = change_norms(params, spec, seed)
+        out.change_norm = change_norms(params, model, seed)
         return out
     finally:
         (torch.backends.cuda.matmul.allow_tf32,

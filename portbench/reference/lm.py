@@ -17,7 +17,9 @@ The model, layer by layer (pre-norm residual blocks):
 
 Parameters are a flat dict ``{name: tensor}``, named as the program's
 parameter tree is laid out (``layers/<i>/attn/wq/w``); ``param_leaves``
-lists every name with its shape and initial scale.
+lists every name with its shape and initial scale, and ``segments`` how
+the program stacks the layers (one unit of one layer, repeated).
+``train_flops`` counts a training step's FLOPs from the shapes.
 
 ``quant="fp8"`` is the control of the benchmark's comparison: every dense
 matmul's two inputs are rounded through float8 e4m3 with a per-tensor
@@ -82,6 +84,36 @@ def param_leaves(spec: ModelSpec) -> List[Tuple[str, Tuple[int, ...], object]]:
         layer.append(("ffn/w_gate/w",) + dense(D, spec.d_ff))
         out += [(pre + n, s, init) for n, s, init in layer]
     return out
+
+
+def segments(spec: ModelSpec) -> Tuple[Tuple[int, int], ...]:
+    """Every layer is of one kind: one unit of one layer, ``n_layers``
+    times."""
+    return ((1, spec.n_layers),)
+
+
+def layer_matmul_params(spec: ModelSpec) -> int:
+    D, H, Hkv, Dh = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    attn = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
+    return attn + 3 * D * spec.d_ff
+
+
+def train_flops(spec: ModelSpec, traffic: dict) -> Dict[str, float]:
+    """FLOPs of one training step of the global batch, without the forward
+    that rematerialisation runs again.
+
+    ``matmul``: 6 per matmul parameter per position it is applied at (2
+    forward, 4 backward), for the layers and the head.  ``attention``: the score
+    and value products over the causal positions (key j <= query i),
+    forward 4 * heads * head_dim per pair, backward twice that.
+    ``total`` is their sum."""
+    B, T = traffic["global_batch"], traffic["seq_len"]
+    head = spec.d_model * spec.vocab
+    matmul = B * 6 * T * (spec.n_layers * layer_matmul_params(spec) + head)
+    pairs = T * (T + 1) // 2
+    attention = B * spec.n_layers * 3 * 4 * spec.n_heads * spec.head_dim * pairs
+    return {"matmul": float(matmul), "attention": float(attention),
+            "total": float(matmul + attention)}
 
 
 # ---------------------------------------------------------------------------

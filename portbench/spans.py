@@ -16,11 +16,15 @@ it; it counts under ``bsp.compute`` or ``bsp.sync`` when that span is the
 phase or lies inside it, and for neither otherwise.
 
 Clock check: no kernel of a step (a device operation that is not a copy
-or a fill, starting after the previous recorded step's host end) may
-start more than ``CLOCK_SLACK_S`` before the step's host start.  A kernel
-cannot run before it is launched, so an earlier start means the host and
-device clocks disagree, and nothing is read.  Nothing is read either from
-a program that records no spans or no device windows.
+or a fill, starting after the previous step ended: after its recorded
+host end and after the host's synchronise that followed it, where the
+trace gives that) may start more than ``CLOCK_SLACK_S`` before the step's
+host start.  A kernel cannot run before it is launched, so an earlier
+start means the host and device clocks disagree, and nothing is read.
+The step's last launches can start after its root span closes; the
+synchronise waits for them, so they count for the step before.  Nothing
+is read either from a program that records no spans or no device
+windows.
 """
 
 from __future__ import annotations
@@ -93,11 +97,12 @@ def _innermost_first(spans) -> List[Tuple[float, float, str, str]]:
     return [t[1:] for t in sorted(out, key=lambda t: t[0])]
 
 
-def split(kernels, recorded) -> Optional[Split]:
+def split(kernels, recorded, synced_ns=()) -> Optional[Split]:
     """``kernels``: the traced device operations ``(name, start, end)`` in
     seconds; ``recorded``: the program's steps, each a list of spans (root
     first) with ``name``, ``id``, ``parent``, ``host_start_ns``,
-    ``host_end_ns`` and ``device_ms``."""
+    ``host_end_ns`` and ``device_ms``; ``synced_ns``: host times at which
+    every kernel launched before them had ended."""
     if not kernels:
         return None
     first = min(s for _, s, _ in kernels)
@@ -115,6 +120,7 @@ def split(kernels, recorded) -> Optional[Split]:
                     if r and r[0].host_end_ns is not None
                     and r[0].host_end_ns < steps[0][0].host_start_ns),
                    default=-float("inf"))
+    synced = sorted(ns * 1e-9 for ns in synced_ns)
     out = Split(steps=len(steps), host_ms=0.0)
     device = defaultdict(float)
     idle_phase = defaultdict(float)
@@ -122,6 +128,9 @@ def split(kernels, recorded) -> Optional[Split]:
     n = len(steps)
     for r in steps:
         a, b = r[0].host_start_ns * 1e-9, r[0].host_end_ns * 1e-9
+        j = bisect.bisect_right(synced, a)
+        if j:
+            prev_end = max(prev_end, synced[j - 1])
         i = bisect.bisect_right(launched, prev_end)
         if i < len(launched) and launched[i] <= b \
                 and launched[i] < a - CLOCK_SLACK_S:
@@ -154,5 +163,6 @@ def read(ctx) -> Optional[Split]:
         except ImportError:
             ctx.span_split = None
         else:
-            ctx.span_split = split(ctx.trace.kernels, spans.steps())
+            ctx.span_split = split(ctx.trace.kernels, spans.steps(),
+                                   ctx.trace.synced_ns)
     return ctx.span_split

@@ -1,7 +1,7 @@
 """The benchmark's cells cut to a size a CPU test holds: the same
-family, traffic kinds, codecs and limits, tiny widths, float32."""
+family, traffic kinds, codecs and limits; the family's small widths,
+float32."""
 
-import copy
 import time
 from types import SimpleNamespace
 
@@ -9,18 +9,18 @@ import torch
 
 from portbench import harness
 from portbench.drivers import bsp_train
+from portbench.reference import bsp as ref
 
-CELLS = ["qwen2.5-3b-10l.bsp-int8", "qwen2.5-3b-10l.bsp-bf16"]
+CELLS = [w["name"] for w in harness.benchmark()["workloads"]
+         if harness.load_cell(w["name"]).kind == "bsp_train"]
 
 
 def small_cell(name: str, dtype: str = "float32"):
     cell = harness.load_cell(name)
-    cfg, t = copy.deepcopy(cell.config), dict(cell.traffic)
-    cfg.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
-               intermediate_size=128, vocab_size=256, num_hidden_layers=2)
+    cfg = ref.Model.of(cell.config).family.small(cell.config)
     cfg["param_dtype"] = dtype
-    t.update(seq_len=16, bucket_mb=0.05)
-    cell.config, cell.traffic = cfg, t
+    cell.config = cfg
+    cell.traffic = dict(cell.traffic, seq_len=16, bucket_mb=0.05)
     return cell
 
 

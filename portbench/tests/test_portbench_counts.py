@@ -9,13 +9,13 @@ import torch
 
 from portbench import counts, harness
 from portbench.reference import bsp as ref
-from portbench.reference.lm import ModelSpec
+from portbench.reference import lm
 from portbench.tests.small import CELLS
 from portbench.trace import Trace
 
-TINY = ModelSpec(name="tiny", n_layers=2, d_model=8, n_heads=2, n_kv_heads=1,
-                 head_dim=4, d_ff=16, vocab=32, qkv_bias=True, tied=True,
-                 rope_theta=1e4, norm_eps=1e-6)
+TINY = lm.ModelSpec(name="tiny", n_layers=2, d_model=8, n_heads=2,
+                    n_kv_heads=1, head_dim=4, d_ff=16, vocab=32, qkv_bias=True,
+                    tied=True, rope_theta=1e4, norm_eps=1e-6)
 
 
 def test_train_flops_by_hand():
@@ -25,37 +25,55 @@ def test_train_flops_by_hand():
     matmul = 2 * (6 * 2 * layer * 3 + 6 * 8 * 32 * 3)
     # causal pairs of 3 positions: 6; 4 * heads * head_dim each, x3
     attention = 2 * 2 * 3 * 4 * 2 * 4 * 6
-    f = counts.train_flops(TINY, t)
+    f = lm.train_flops(TINY, t)
     assert f == {"matmul": matmul, "attention": attention,
                  "total": matmul + attention}
 
 
 def test_decode_add_elements_by_hand():
-    layout = ref.Layout(TINY, 4, 0.0001)
+    layout = ref.Layout(ref.Model(lm, TINY), 4, 0.0001)
     want = sum(4 * (b.length // 2 + b.length // 4) for b in layout.buckets)
     assert counts.decode_add_elements(layout) == want
     assert counts.decode_add_bytes(layout, "int8") == want * (9 + 1 / 32)
     assert counts.decode_add_bytes(layout, "bf16") == want * 10
 
 
+def test_error_feedback_roofline_by_hand():
+    """16 B an element of every bucket's [world, length] rows, at the
+    HBM bandwidth, over the device time of E1's kernels."""
+    layout = ref.Layout(ref.Model(lm, TINY), 4, 0.0001)
+    per_step = counts.error_feedback_bytes(layout)
+    assert per_step == 4 * 4 * 4 * sum(b.length for b in layout.buckets)
+    read = harness.reader("error_feedback_roofline")
+    ef = "void error_feedback_kernel<0, true>(float*, float*, long)"
+    ctx = _ctx(trace=Trace(kernels=[(ef, 0.0, 0.2), (ef, 0.3, 0.5),
+                                    ("decode_add_int8_kernel", 0.5, 0.6)],
+                           step_seconds=[2.0]),
+               profiled_steps=2, error_feedback_bytes=0.3e12)
+    # 2 steps of 0.3 TB at 3 TB/s: 0.2 s, over 0.4 s of E1
+    assert math.isclose(read(ctx), 50.0)
+    assert read(_ctx(error_feedback_bytes=0.3e12)) is None
+    assert read(_ctx(trace=ctx.trace, error_feedback_bytes=None)) is None
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_layout_is_the_ports_bucket_plan(name):
     """At the cell's full size (shapes only): the benchmark's buckets,
     their padding and every parameter's place equal the port's engine."""
-    from portbench.drivers.bsp_train import model_spec, program_config
+    from portbench.drivers.bsp_train import program_config
     from repro_torch.core.bsp import BSPConfig
     from repro_torch.core.superstep import engine_for
     from repro_torch.models import transformer as T
     from repro_torch.weights import reference_leaves
     cell = harness.load_cell(name)
-    spec, t = model_spec(cell.config), cell.traffic
-    cfg = program_config(cell.config, spec)
+    model, t = ref.Model.of(cell.config), cell.traffic
+    cfg = program_config(cell.config, model)
     leaves = reference_leaves(T.init_params(cfg, device="meta"), cfg)
     eng = engine_for(leaves, BSPConfig(schedule=t["schedule"],
                                        bucket_mb=float(t["bucket_mb"]),
                                        bucket_codec=t["bucket_codec"]),
                      t["world"], force_dtype=torch.float32, zero1=True)
-    layout = ref.Layout(spec, t["world"], t["bucket_mb"])
+    layout = ref.Layout(model, t["world"], t["bucket_mb"])
     assert [(b.raw, b.length) for b in eng.buckets] == \
         [(b.raw, b.length) for b in layout.buckets]
     assert list(eng.shard_offsets()) == layout.shard_offsets()

@@ -7,7 +7,7 @@ import re
 import pytest
 
 from portbench import harness
-from portbench.drivers.bsp_train import model_spec
+from portbench.reference.bsp import Model
 
 BENCH = harness.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -32,8 +32,9 @@ def test_cell_files_by_name(cell):
     assert c.config["name"] == entry["config"]
     assert c.chips == entry["chips"] == 1
     harness.driver(c.kind)
-    spec = model_spec(c.config)
-    assert spec.n_layers > 0
+    model = Model.of(c.config)
+    assert model.spec.name == entry["config"]
+    assert model.family.param_leaves(model.spec)
     assert c.limits and set(c.limits) <= {"loss_gap", "grad_gap",
                                           "change_gap"}
     for section in ("end_to_end", "per_layer"):

@@ -80,12 +80,11 @@ def test_the_fp8_control_fails_a_limit(name):
     """The control (the reference with fp8 matmul inputs in the program's
     place) reads past at least one of the cell's limits."""
     cell = small_cell(name)
-    from portbench.drivers.bsp_train import model_spec
-    spec = model_spec(cell.config)
+    model = ref.Model.of(cell.config)
     seed = 12345
-    batches = ref.make_batches(spec, cell.traffic, seed, 3, "cpu")
-    expect = ref.run(spec, cell.traffic, seed, batches, "cpu")
-    got = ref.run(spec, cell.traffic, seed, batches, "cpu", variant="fp8")
+    batches = ref.make_batches(model, cell.traffic, seed, 3, "cpu")
+    expect = ref.run(model, cell.traffic, seed, batches, "cpu")
+    got = ref.run(model, cell.traffic, seed, batches, "cpu", variant="fp8")
     checks = ref.compare(got, expect)
     assert any(checks[k]["value"] > lim for k, lim in cell.limits.items()), \
         checks
@@ -95,12 +94,11 @@ def test_column_blocks_change_no_value(monkeypatch):
     """The reference exchanges and updates a bucket in blocks of columns;
     blocks of 128 give the readings of whole chunks."""
     cell = small_cell(CELLS[0])
-    from portbench.drivers.bsp_train import model_spec
-    spec = model_spec(cell.config)
-    batches = ref.make_batches(spec, cell.traffic, 3, 3, "cpu")
-    whole = ref.run(spec, cell.traffic, 3, batches, "cpu")
+    model = ref.Model.of(cell.config)
+    batches = ref.make_batches(model, cell.traffic, 3, 3, "cpu")
+    whole = ref.run(model, cell.traffic, 3, batches, "cpu")
     monkeypatch.setattr(ref, "COLUMN_BLOCK", 128)
-    blocks = ref.run(spec, cell.traffic, 3, batches, "cpu")
+    blocks = ref.run(model, cell.traffic, 3, batches, "cpu")
     assert whole.losses == blocks.losses
     assert whole.grad_norm == blocks.grad_norm
     assert whole.change_norm == blocks.change_norm

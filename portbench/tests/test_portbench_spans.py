@@ -21,6 +21,7 @@ from types import SimpleNamespace
 import pytest
 
 from portbench import harness, spans
+from portbench.trace import Trace
 
 BASE_NS = 1_760_000_000 * 10 ** 9
 # seconds as floats at the epoch's size resolve 0.24 us: compare to 1 us
@@ -124,6 +125,17 @@ def test_the_clock_check(start, ok):
     assert (got is not None) == ok
 
 
+@pytest.mark.parametrize("start,ok", [(100.5, True), (108.9, False)])
+def test_the_clock_check_after_the_synchronise(start, ok):
+    """A kernel step A launched last can start after A's root span closed
+    (100 ms); the synchronise after A (returned at 103 ms) waited for it,
+    so it is A's and passes; one at 108.9 ms, after the synchronise and
+    1.1 ms before step B's host start, still fails."""
+    kernels, recorded = _timeline(extra_kernel=start)
+    got = spans.split(kernels, recorded, [BASE_NS + 103_000_000])
+    assert (got is not None) == ok
+
+
 def test_a_kernel_before_the_first_step_fails_the_check():
     kernels, recorded = _timeline()
     kernels.append(("k", _s(-0.2), _s(-0.1)))
@@ -161,7 +173,7 @@ def test_reader(name, monkeypatch):
     kernels, recorded = _timeline()
     program = SimpleNamespace(steps=lambda: recorded)
     monkeypatch.setattr("repro_torch.runtime.spans.steps", program.steps)
-    ctx = SimpleNamespace(trace=SimpleNamespace(kernels=kernels))
+    ctx = SimpleNamespace(trace=Trace(kernels=kernels))
     assert harness.reader(name)(ctx) == approx(READS[name])
 
 
@@ -172,13 +184,13 @@ def test_reader_reads_nothing_off_the_card(name, monkeypatch):
     from repro_torch.runtime import spans as program
     monkeypatch.setattr(program, "steps", lambda: [
         [_span("bsp.step", 0, 1, device_ms=None)]])
-    ctx = SimpleNamespace(trace=SimpleNamespace(kernels=[]))
+    ctx = SimpleNamespace(trace=Trace(kernels=[]))
     assert harness.reader(name)(ctx) is None
     kernels, _ = _timeline()
-    ctx = SimpleNamespace(trace=SimpleNamespace(kernels=kernels))
+    ctx = SimpleNamespace(trace=Trace(kernels=kernels))
     assert harness.reader(name)(ctx) is None
     import repro_torch.runtime
     monkeypatch.delattr(repro_torch.runtime, "spans")
     monkeypatch.setitem(sys.modules, "repro_torch.runtime.spans", None)
-    ctx = SimpleNamespace(trace=SimpleNamespace(kernels=kernels))
+    ctx = SimpleNamespace(trace=Trace(kernels=kernels))
     assert harness.reader(name)(ctx) is None

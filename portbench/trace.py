@@ -32,6 +32,9 @@ class Trace:
     kernels: List[Tuple[str, float, float]] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
     gaps: List[List] = field(default_factory=list)
+    # host clock (``time.time_ns()``) as each device-traced step's
+    # synchronise returned: every kernel the step launched has ended
+    synced_ns: List[int] = field(default_factory=list)
 
     def kernel_seconds(self, match: Callable[[str], bool]) -> float:
         return sum(e - s for n, s, e in self.kernels if match(n))
@@ -119,6 +122,7 @@ def profile(step: Callable[[], None], n: int, gaps: int = 10) -> Trace:
             t = time.monotonic()
             step()
             torch.cuda.synchronize()
+            tr.synced_ns.append(time.time_ns())
             tr.step_seconds.append(time.monotonic() - t)
     tr.kernels = [(name, s, t) for name, dev, s, t in _events(prof)
                   if dev and name != STEP_SPAN]
